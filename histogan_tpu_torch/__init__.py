@@ -1,0 +1,7 @@
+"""PyTorch/CUDA port of histogan_tpu for NVIDIA Hopper GPUs.
+
+This slice covers sampling (``histogan-torch --generate True``). The
+package imports torch and never jax or histogan_tpu; its kernels are
+built at first use, so importing it compiles nothing. Import the
+submodules directly (``histogan_tpu_torch.train.trainer`` and so on).
+"""

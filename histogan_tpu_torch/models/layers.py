@@ -1,0 +1,35 @@
+"""Primitive layers with the reference's initialisation
+(counterpart of ``histogan_tpu/models/layers.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from histogan_tpu_torch.utils import inits
+
+
+def leaky_relu(x: torch.Tensor, negative_slope: float = 0.2) -> torch.Tensor:
+    """Reference default activation (histoGAN/histoGAN.py:192-193)."""
+    return F.leaky_relu(x, negative_slope)
+
+
+class TorchLinear(nn.Linear):
+    """nn.Linear with kaiming-normal weight and torch-default uniform bias;
+    ``zero_init`` zeroes both (the noise projections)."""
+
+    def __init__(self, in_features: int, out_features: int, zero_init: bool = False):
+        self.zero_init = zero_init
+        super().__init__(in_features, out_features)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        if self.zero_init:
+            self.weight.zero_()
+            self.bias.zero_()
+            return
+        inits.kaiming_normal_(self.weight, generator)
+        inits.torch_default_bias_(self.bias, self.in_features, generator)
