@@ -1,42 +1,83 @@
 """Smoke run of the PyTorch port (histogan_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                  # the smoke run
+    python3 chip_smoke.py --profile DIR    # and a torch.profiler view of the train
+                                           # step, its tables written under DIR
 
-Phases, one line each:
+Phases, each printing its lines:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
-  2. build: compiles the histogram kernel from histogan_tpu_torch/csrc;
-  3. kernel: the kernel against its plain torch version at the shapes the
-     paths give it, fp32 with TF32 off, timed with CUDA events;
+  2. build: compiles both histogram kernels from histogan_tpu_torch/csrc
+     (one nvcc each, started together) and prints their ptxas reports;
+  3. kernel: K1 (forward) against its plain torch version at the shapes
+     the paths give it, fp32 with TF32 off, timed with CUDA events;
   4. slice: HistoGAN sampling at 256 px, capacity 16, latent 512, style
      depth 8, batch 16: weights from seed 0 written as a reference-layout
      .pt and loaded back, one 384x512 target image, 8 x 8 tiles = 64
      samples through the CLI's per-target function;
   5. reference: two of those samples recomputed on the CPU with the same
-     weights, latents and noise.
+     weights, latents and noise;
+  6. backward: K2 against its plain version, the same way as phase 3;
+  7. loss gradient: d Hellinger / d images at (16, 256, 256, 3) through the
+     kernels against the same on the CPU (the plain versions);
+  8. train: Trainer.set_data_src on 64 written images and Trainer.train
+     for steps 0-9 at 256 px, capacity 16, latent 512, style depth 8,
+     batch 16, fp32; then save, load into a new Trainer and one more step;
+  9. card vs CPU: one step-0 train step (GP and PL) at full width and
+     batch 2 on both devices from the same weights, batch and draws; then
+     the same step without the gradient penalty.
 Then one JSON line with the kernels, and last the result line. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "chip_smoke"
 KERNEL_TOL_ABS = 1e-6  # normalised histogram, max |kernel - plain|
-KERNEL_TOL_REL = 1e-5  # the same over max |plain|
+KERNEL_TOL_REL = 1e-5  # the same over max |plain|; K2: per column
+# d(loss)/d(images), kernels vs plain, relative to the largest entry: the
+# JAX package's gate for its Pallas kernels (tests/test_histogram_pallas.py)
+GRAD_TOL_REL = 1e-4
 # Card vs CPU at full width: 14 modulated convs of up to 2048 x 9 terms
 # summed in other orders (cuDNN vs the CPU's algorithms), fp32 throughout.
 SLICE_TOL = 1e-3
-SHAPES = [(1, 150 * 150), (16, 64 * 64), (8, 250 * 250)]  # (B, N) of packed
+STEP_LOSS_RTOL = 1e-3  # card vs CPU train step losses, the same reason
+LR = 2e-4
+# Card vs CPU gradients, per tensor, relative to its largest entry. A
+# leaky-ReLU input within fp32 rounding of 0 takes the other slope on one
+# side; in D's last blocks (4x4 and 2x2 positions) one such entry moves its
+# channel's gradient by percents, and the gradient penalty differentiates
+# through the same kinks twice. So the gradients agree far less closely
+# than the losses (PERF.md, "Card vs CPU").
+STEP_GRAD_RTOL = 5e-2
+# Card vs CPU post-step parameters. DiffGrad's first update moves an entry
+# by -lr * u(g), u(g) = sigmoid(|g|) * g / (|g| + eps / sqrt(1 - b2)).
+# Where |g_cpu| exceeds its tensor's measured card-vs-CPU gradient gap the
+# sign of g is settled on both sides; there the parameters may differ by
+# lr * |u(g_card) - u(g_cpu)| (at most lr |dg| / 4 away from 0) and fp32
+# rounding, STEP_PARAM_CLOSE. At least STEP_SETTLED_MIN of the live
+# entries must be settled, so that the gate covers the bulk of them.
+STEP_PARAM_CLOSE = 1e-6
+STEP_SETTLED_MIN = 0.5
+SHAPES = [(1, 150 * 150), (16, 64 * 64), (8, 250 * 250)]  # (B, N) of packed, K1
+BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097)]  # (B, N) of packed, K2
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
+FLAGSHIP = dict(image_size=256, network_capacity=16, latent_dim=512, style_depth=8)
+CARD = "cuda"  # the device under test
 
 
 def check(ok: bool, what: str) -> None:
@@ -58,45 +99,38 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def alternate_ms(plain, kernel, reps: int = 50):
+    """plain, kernel, kernel, plain; returns (kernel ms, plain ms, the four)."""
+    p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
+    return min(k1, k2), min(p1, p2), (p1, k1, k2, p2)
+
+
 def normalise(h: torch.Tensor) -> torch.Tensor:
     return h / (h.sum(dim=(1, 2, 3), keepdim=True) + 1e-6)
 
 
-def main() -> int:
-    # ---- 1. device
-    if not torch.cuda.is_available():
-        print("device: torch.cuda.is_available() is False; this smoke run needs a GPU",
-              file=sys.stderr)
-        return 2
-    from histogan_tpu_torch.cli.histogan import sample_target, tile_double
-    from histogan_tpu_torch.ops import histogram_cuda
-    from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, resize_if_needed
-    from histogan_tpu_torch.train.trainer import Trainer
-    from histogan_tpu_torch.utils.platform import setup_runtime
+def reset_counts(histogram_cuda) -> None:
+    histogram_cuda.launches = 0
+    histogram_cuda.bwd_launches = 0
 
-    dev = setup_runtime("cuda")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
-    print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # ---- 2. build
+# ---------------------------------------------------------------- phases
+def phase_build(histogram_cuda) -> None:
     t0 = time.perf_counter()
-    lib = histogram_cuda.build()
-    histogram_cuda._library()
-    print(f"build: {lib.relative_to(ROOT) if lib.is_relative_to(ROOT) else lib} "
-          f"in {time.perf_counter() - t0:.2f} s")
-    log = lib.with_suffix(".log")
-    if log.is_file():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: ptxas {line.strip()}")
+    libs = histogram_cuda.build()
+    for name in libs:
+        histogram_cuda._library(name)
+    print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.2f} s")
+    for name, lib in sorted(libs.items()):
+        log = lib.with_suffix(".log")
+        if log.is_file():
+            for line in log.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"build: {name} ptxas {line.strip()}")
 
-    # ---- 3. kernel against plain
-    max_err = 0.0
-    shape_rows = []
+
+def phase_forward(histogram_cuda, dev):
+    max_err, rows = 0.0, []
     for b, n in SHAPES:
         x = np.random.default_rng(b * 7919 + n).random((b, n, 3), dtype=np.float32)
         packed = histogram_cuda.pack_pixels(torch.from_numpy(x).to(dev)).contiguous()
@@ -110,37 +144,38 @@ def main() -> int:
         check(err <= KERNEL_TOL_ABS, f"max|kernel-plain| {err:.3e} <= {KERNEL_TOL_ABS} at B={b} N={n}")
         check(rel <= KERNEL_TOL_REL, f"relative {rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n}")
         max_err = max(max_err, err)
-        reps = 50
-        p1 = time_ms(lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2), reps)
-        k1 = time_ms(lambda: histogram_cuda.hist_core(packed, INV_SIGMA2), reps)
-        k2 = time_ms(lambda: histogram_cuda.hist_core(packed, INV_SIGMA2), reps)
-        p2 = time_ms(lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2), reps)
+        ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
+            lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2),
+            lambda: histogram_cuda.hist_core(packed, INV_SIGMA2))
         chunk, n_chunks = histogram_cuda.split_pixels(
             b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        row = {"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "ms": min(k1, k2),
-               "plain_ms": min(p1, p2), "chunks": n_chunks, "chunk": chunk}
-        shape_rows.append(row)
+        rows.append({"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "ms": ms,
+                     "plain_ms": plain_ms, "chunks": n_chunks, "chunk": chunk})
         print(f"kernel: B={b} N={n} max|d|={err:.3e} rel={rel:.3e} "
               f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms "
               f"({n_chunks} chunks of {chunk} px)")
+    return max_err, rows
 
-    # ---- 4. the slice at the flagship width
-    work = ROOT / "build" / "chip_smoke"
-    work.mkdir(parents=True, exist_ok=True)
-    cfg = dict(image_size=256, network_capacity=16, latent_dim=512, style_depth=8,
-               batch_size=16, hist_resizing="interpolation", hist_insz=150,
+
+def phase_sampling(histogram_cuda, dev, smi):
+    from histogan_tpu_torch.cli.histogan import sample_target, tile_double
+    from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, resize_if_needed
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    work = WORK / "sampling"
+    cfg = dict(FLAGSHIP, batch_size=16, hist_resizing="interpolation", hist_insz=150,
                hist_bin=64, trunc_psi=0.75, seed=0)
     t0 = time.perf_counter()
     src = Trainer("chip_smoke", work / "results", work / "models", device="cpu", **cfg)
     src.init_GAN()
     pt = work / "weights.pt"
-    torch.save(src.reference_state_dict(), pt)
+    src.export_pt(pt)
     model = Trainer("chip_smoke", work / "results", work / "models", device="cuda", **cfg)
     model.init_GAN()
     skipped = model.load_pt(pt)
     check(skipped == [], f"every key of the written .pt loads (skipped {skipped[:4]})")
     n_params = sum(p.numel() for m in model.models().values() for p in m.parameters())
-    print(f"slice: weights seed 0, {n_params} parameters (S/H/G + EMA), "
+    print(f"slice: weights seed 0, {n_params} parameters (S/H/G/D + EMA), "
           f".pt {pt.stat().st_size} bytes written and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
 
@@ -151,7 +186,7 @@ def main() -> int:
     sample_target(model, hist_block, image=img, num_image_tiles=tiles)  # warm-up, resolves av
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    histogram_cuda.launches = 0
+    reset_counts(histogram_cuda)
     t0 = time.perf_counter()
     out = sample_target(model, hist_block, image=img, num_image_tiles=tiles)
     torch.cuda.synchronize()
@@ -162,7 +197,7 @@ def main() -> int:
     check(bool(np.isfinite(out).all()), "output finite")
     check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output in [0, 1]")
     check(float(out.std()) > 0.0, "output not constant")
-    check(launches >= 1, f"histogram kernel launched on the path ({launches})")
+    check(launches >= 1, f"histogram kernel launched on the sampling path ({launches})")
 
     x = torch.from_numpy(img[None]).to(dev)
     with torch.inference_mode():
@@ -194,17 +229,358 @@ def main() -> int:
     serr = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
     check(serr <= SLICE_TOL, f"card vs CPU samples max|d| {serr:.3e} <= {SLICE_TOL}")
     print(f"reference: 2 samples, card vs CPU max|d| {serr:.3e} (tolerance {SLICE_TOL})")
-    shutil.rmtree(work, ignore_errors=True)
+    return launches
 
-    main_shape = shape_rows[0]
-    print(json.dumps({"kernels": [{
-        "name": "histogram_fwd", "route": "cuda",
-        "source": "histogan_tpu_torch/csrc/histogram_fwd.cu",
-        "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-        "shapes": shape_rows,
-    }]}))
+
+def phase_backward(histogram_cuda, dev):
+    max_err, rows = 0.0, []
+    for b, n in BWD_SHAPES:
+        rng = np.random.default_rng(b * 104729 + n)
+        x = rng.random((b, n, 3), dtype=np.float32)
+        packed = histogram_cuda.pack_pixels(torch.from_numpy(x).to(dev)).contiguous()
+        g = torch.from_numpy(
+            1e-3 * rng.standard_normal((b, 3, 64, 64), dtype=np.float32)).to(dev)
+        got = histogram_cuda._launch_bwd(packed, g, INV_SIGMA2)
+        want = histogram_cuda.hist_core_bwd_reference(packed, g, INV_SIGMA2)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"K2 output finite at B={b} N={n}")
+        check(bool((got[..., 7] == 0).all()), f"K2 column 7 exactly 0 at B={b} N={n}")
+        col_rel = []
+        for c in range(7):
+            err = (got[..., c] - want[..., c]).abs().max().item()
+            rel = err / want[..., c].abs().max().item()
+            check(rel <= KERNEL_TOL_REL, f"K2 column {c} relative {rel:.3e} <= "
+                                         f"{KERNEL_TOL_REL} at B={b} N={n}")
+            col_rel.append(rel)
+            max_err = max(max_err, err)
+        err = (got - want).abs().max().item()
+        ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
+            lambda: histogram_cuda.hist_core_bwd_reference(packed, g, INV_SIGMA2),
+            lambda: histogram_cuda._launch_bwd(packed, g, INV_SIGMA2))
+        rows.append({"B": b, "N": n, "max_abs_err": err, "max_col_rel_err": max(col_rel),
+                     "ms": ms, "plain_ms": plain_ms})
+        print(f"backward: B={b} N={n} max|d|={err:.3e} worst column rel={max(col_rel):.3e} "
+              f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms")
+    return max_err, rows
+
+
+def phase_loss_gradient(dev) -> float:
+    from histogan_tpu_torch.ops.histogram import histogram_feature
+    from histogan_tpu_torch.ops.losses import hellinger_histogram_loss
+
+    rng = np.random.default_rng(5)
+    x = rng.random((16, 256, 256, 3), dtype=np.float32) * 1.2 - 0.1  # relu and clip bite
+    target = histogram_feature(torch.from_numpy(rng.random((16, 256, 256, 3), dtype=np.float32)),
+                               resizing="sampling")
+    grads = {}
+    for name, d in (("cpu", "cpu"), ("card", dev)):  # the CPU runs the plain versions
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        loss = hellinger_histogram_loss(
+            target.to(d), histogram_feature(torch.relu(xt), resizing="sampling"))
+        loss.backward()
+        grads[name] = xt.grad.cpu()
+    want = grads["cpu"]
+    rel = (grads["card"] - want).abs().max().item() / want.abs().max().item()
+    check(bool(torch.isfinite(grads["card"]).all()), "loss gradient finite")
+    check(rel < GRAD_TOL_REL, f"d loss / d images kernels vs plain relative {rel:.3e} < {GRAD_TOL_REL}")
+    print(f"loss gradient: (16, 256, 256, 3) sampling, kernels vs plain relative max|d| {rel:.3e} "
+          f"(tolerance {GRAD_TOL_REL})")
+    return rel
+
+
+def write_images(folder: Path, n: int = 64) -> None:
+    from PIL import Image
+
+    folder.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(6)
+    for i in range(n):  # 288x320: the loader resizes the shorter side and crops
+        base = rng.random((9, 10, 3)) * 255
+        img = np.kron(base, np.ones((32, 32, 1))) + rng.normal(0, 12, (288, 320, 3))
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(folder / f"{i:03d}.jpg",
+                                                                  quality=95)
+
+
+def phase_train(histogram_cuda, smi, profile: Optional[Path]):
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    work = WORK / "train"
+    write_images(work / "data")
+    cfg = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1, hist_resizing="sampling",
+               seed=0, save_every=1000)
+    t = Trainer("train", work / "results", work / "models", device=CARD, **cfg)
+    t.init_GAN()
+    before = {k: v.detach().clone() for k, v in t.reference_state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts(histogram_cuda)
+    t0 = time.perf_counter()
+    t.set_data_src(str(work / "data"))
+    pool_s = time.perf_counter() - t0
+    step_ms = []
+    for step in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.train()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        flags = [name for name, on in (("GP", step % 4 == 0), ("PL", step % 32 == 0),
+                                       ("EMA reset", step % 1000 == 2),
+                                       ("save+evaluate", step == 0)) if on]
+        print(f"train: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
+              + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+        check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
+    counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    check(counts["histogram_fwd"] >= 1 and counts["histogram_bwd"] >= 1,
+          f"K1 and K2 launched on the training path {counts}")
+    after = t.reference_state_dict()
+    for prefix in ("S", "H", "G", "D"):
+        keys = [k for k in after if k.split(".")[0] == prefix]
+        check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
+    del before
+    rate = 3 * cfg["batch_size"] / (sum(step_ms[5:8]) / 1e3)
+    print(f"train: pool of 64 images in {pool_s:.2f} s; steps 5-7 (plain) "
+          f"{step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} imgs/s "
+          f"(batch 16, fp32); peak {peak} bytes; launches {counts} on {smi}")
+
+    if profile is not None:
+        profile_steps(t, profile)
+
+    # save, load into a new Trainer, one more step
+    t.save(1)
+    pl_mean, opt_steps = t.state.pl_mean.item(), t.state.step
+    t.close()
+    del t
+    torch.cuda.empty_cache()
+    r = Trainer("train", work / "results", work / "models", device=CARD, **cfg)
+    r.load(-1)
+    check(r.state.step == opt_steps and r.steps == cfg["save_every"],
+          f"step counters carried over ({r.state.step}, {r.steps})")
+    check(r.state.pl_mean.item() == pl_mean, f"pl_mean carried over ({r.state.pl_mean.item()})")
+    r.set_data_src(str(work / "data"))
+    m = r.train()
+    r.close()
+    check(all(math.isfinite(v) for v in m.values()) and r.state.step == opt_steps + 1,
+          "one finite step after the resume")
+    print(f"train: saved at step {opt_steps}, loaded (pl_mean {pl_mean:.6f}), one more step: "
+          + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+    del r
+    torch.cuda.empty_cache()
+    return counts, rate, peak
+
+
+def profile_steps(t, out: Path) -> None:
+    """Times and a torch.profiler view of the flagship step by its flags:
+    plain, GP (every 4th), GP+PL (step 0 of every 32); the operator tables
+    go to ``out``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from histogan_tpu_torch.train.steps import draw_step, train_step
+
+    out.mkdir(parents=True, exist_ok=True)
+    batch = t._device_batch(next(t.loader))
+    flag_sets = {"plain": (False, False), "gp": (True, False), "gp+pl": (True, True)}
+
+    def step(gp, pl):
+        draws = draw_step(t.gen, t.cfg, t.device, pl)
+        return train_step(t.state, batch, draws, t.cfg, gp, pl)
+
+    for name, (gp, pl) in flag_sets.items():
+        step(gp, pl)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            step(gp, pl)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+        print(f"profile: {name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(gp, pl)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        (out / f"profile_{name.replace('+', '_')}.txt").write_text(
+            events.table(sort_by="self_device_time_total", row_limit=40))
+        # device-side events only (kernels, copies): the operators' rows and
+        # the device copies of host annotations carry the same time again
+        host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.key not in host_keys and e.key != "Command Buffer Full"]
+        device_us = sum(e.self_device_time_total for e in kernels)
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
+        hist = [e for e in kernels if "hist_" in e.key]  # K1's two kernels and K2
+        print(f"profile: {name} wall {wall_us / 1e3:.2f} ms, device kernels "
+              f"{device_us / 1e3:.2f} ms, busy share {device_us / wall_us:.3f}")
+        for e in top + hist:
+            print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}")
+
+
+def diffgrad_first_move(g: torch.Tensor) -> torch.Tensor:
+    """u(g) of DiffGrad's first update (p -= lr * u(g)), in float64."""
+    g = g.double()
+    return torch.sigmoid(g.abs()) * g / (g.abs() + 1e-8 / math.sqrt(1.0 - 0.9))
+
+
+def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
+    """One train step with the given flags at full width and batch 2 on the
+    card and on the CPU, from the same weights, batch and draws."""
+    from histogan_tpu_torch.train.steps import draw_step, train_step
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    work = WORK / "card_vs_cpu"
+    cfg = dict(FLAGSHIP, batch_size=2, gradient_accumulate_every=1, hist_resizing="sampling",
+               seed=3)
+    tr = {name: Trainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
+          for name, d in (("card", CARD), ("cpu", "cpu"))}
+    for t in tr.values():
+        t.init_GAN()
+    start = tr["card"].reference_state_dict()
+    check(all(torch.equal(start[k].cpu(), v) for k, v in tr["cpu"].reference_state_dict().items()),
+          "same weights on both")
+    del start
+    rng = np.random.default_rng(7)
+    hists = rng.random((3, 1, 2, 3, 64, 64), dtype=np.float32)
+    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
+    size = cfg["image_size"]
+    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3), dtype=np.uint8)),
+             "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
+    draws = draw_step(torch.Generator().manual_seed(8), tr["cpu"].cfg, "cpu", apply_pl=True)
+
+    def to(d, x):
+        if torch.is_tensor(x):
+            return x.to(d)
+        if isinstance(x, dict):
+            return {k: to(d, v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [to(d, v) for v in x]
+        if dataclasses.is_dataclass(x):
+            return type(x)(**{f.name: to(d, getattr(x, f.name)) for f in dataclasses.fields(x)})
+        return x
+
+    def live(t):  # {reference name: (parameter, the gradient its optimizer applied)}
+        return {f"{p}.{n}": (w, (t.state.opt_d if p == "D" else t.state.opt_g).state[w]["previous_grad"])
+                for p in ("S", "H", "G", "D") for n, w in getattr(t.state, p).named_parameters()}
+
+    before = {f"{p}.{n}": w.detach().clone() for p in ("S", "H", "G", "D")
+              for n, w in getattr(tr["cpu"].state, p).named_parameters()}
+    metrics, secs = {}, {}
+    for name, t in tr.items():
+        t0 = time.perf_counter()
+        m = train_step(t.state, to(t.device, batch), to(t.device, draws), t.cfg,
+                       apply_gp=apply_gp, apply_pl=apply_pl)
+        metrics[name] = {k: v.item() for k, v in m.items()}
+        secs[name] = time.perf_counter() - t0
+    names = ("d_loss", "g_loss", "h_loss") + (("gp_loss",) if apply_gp else ()) \
+        + (("pl_mean",) if apply_pl else ())
+    loss_rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
+                for k in names}
+
+    r = dict(grad_rel=0.0, grad_worst="", worst=0.0, off=0, total=0, settled=0, bad=0,
+             flipped=0, flipped_rel=0.0, moved=0)
+    card = live(tr["card"])
+    for k, (w_cpu, g_cpu) in live(tr["cpu"]).items():
+        w_card, g_card = (x.detach().cpu() for x in card[k])
+        w_cpu = w_cpu.detach()
+        gap = (g_card - g_cpu).abs().max().item()
+        scale = max(g_cpu.abs().max().item(), 1e-30)  # a tensor may take no gradient
+        if gap / scale > r["grad_rel"]:
+            r["grad_rel"], r["grad_worst"] = gap / scale, k
+        diff = (w_card - w_cpu).abs()
+        r["worst"] = max(r["worst"], diff.max().item())
+        r["off"] += int((diff > STEP_PARAM_CLOSE).sum())
+        r["total"] += w_cpu.numel()
+        settled = g_cpu.abs() > gap  # the sign of g is the same on both sides
+        allowed = STEP_PARAM_CLOSE + LR * (diffgrad_first_move(g_card)
+                                           - diffgrad_first_move(g_cpu)).abs()
+        r["settled"] += int(settled.sum())
+        r["bad"] += int((settled & (diff.double() > allowed)).sum())
+        flipped = (g_card * g_cpu) < 0
+        r["flipped"] += int(flipped.sum())
+        if flipped.any():
+            r["flipped_rel"] = max(r["flipped_rel"], g_cpu[flipped].abs().max().item() / scale)
+        r["moved"] += int(not torch.equal(w_cpu, before[k]))
+    for t in tr.values():
+        t.close()
+    flags = "+".join(f for f, on in (("GP", apply_gp), ("PL", apply_pl)) if on) or "plain"
+    print(f"card vs cpu: step 0 ({flags}) {size} px batch 2: "
+          + " ".join(f"{k} {metrics['card'][k]:.6f}/{metrics['cpu'][k]:.6f} (rel {loss_rel[k]:.2e})"
+                     for k in names)
+          + f"; gradients worst tensor rel {r['grad_rel']:.3e} ({r['grad_worst']}), "
+          f"{r['flipped']} entries of opposite sign, the largest {r['flipped_rel']:.3e} of its "
+          f"tensor's largest; parameters max|d| {r['worst']:.3e}, {r['off']} of {r['total']} "
+          f"live entries off by > {STEP_PARAM_CLOSE}, {r['settled']} settled, {r['bad']} of them "
+          f"outside fp32 rounding plus the gradient gap through DiffGrad; {r['moved']} tensors "
+          f"moved (card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s)")
+    for k in names:
+        check(math.isfinite(metrics["card"][k]) and loss_rel[k] <= STEP_LOSS_RTOL,
+              f"card vs CPU {k} within {STEP_LOSS_RTOL} relative ({flags})")
+    check(r["grad_rel"] <= STEP_GRAD_RTOL,
+          f"gradients within {STEP_GRAD_RTOL} of each tensor's largest ({flags})")
+    check(r["bad"] == 0, f"post-step parameters on settled entries: {r['bad']} outside ({flags})")
+    check(r["settled"] >= STEP_SETTLED_MIN * r["total"],
+          f"{r['settled']} of {r['total']} entries settled, >= {STEP_SETTLED_MIN} ({flags})")
+    check(r["moved"] > 0, f"the step moved the parameters ({flags})")
+    return r
+
+
+def phase_card_vs_cpu() -> None:
+    """The step-0 step (GP and PL), and as a witness of where the card and
+    the CPU part, the same step without the gradient penalty."""
+    card_vs_cpu_step(apply_gp=True, apply_pl=True)
+    card_vs_cpu_step(apply_gp=False, apply_pl=True)
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
+                        help="also profile the train step; tables under DIR")
+    profile = parser.parse_args(argv).profile
+    # ---- 1. device
+    if not torch.cuda.is_available():
+        print("device: torch.cuda.is_available() is False; this smoke run needs a GPU",
+              file=sys.stderr)
+        return 2
+    from histogan_tpu_torch.ops import histogram_cuda
+    from histogan_tpu_torch.utils.platform import setup_runtime
+
+    dev = setup_runtime("cuda")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"device: torch {torch.__version__} cuda {torch.version.cuda} "
+          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    phase_build(histogram_cuda)                                        # 2
+    fwd_err, fwd_rows = phase_forward(histogram_cuda, dev)             # 3
+    sampling_launches = phase_sampling(histogram_cuda, dev, smi)       # 4, 5
+    bwd_err, bwd_rows = phase_backward(histogram_cuda, dev)            # 6
+    phase_loss_gradient(dev)                                           # 7
+    counts, _, _ = phase_train(histogram_cuda, smi, profile)           # 8
+    phase_card_vs_cpu()                                                # 9
+    shutil.rmtree(WORK, ignore_errors=True)
+
+    print(json.dumps({"kernels": [
+        {"name": "histogram_fwd", "route": "cuda",
+         "source": "histogan_tpu_torch/csrc/histogram_fwd.cu",
+         "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
+         "launches": counts["histogram_fwd"],
+         "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"]},
+         "max_abs_err": fwd_err, "ms": fwd_rows[0]["ms"], "plain_ms": fwd_rows[0]["plain_ms"],
+         "shapes": fwd_rows},
+        {"name": "histogram_bwd", "route": "cuda",
+         "source": "histogan_tpu_torch/csrc/histogram_bwd.cu",
+         "replaces": "histogan_tpu/ops/histogram_pallas.py:64",
+         "launches": counts["histogram_bwd"],
+         "launches_by_path": {"training": counts["histogram_bwd"]},
+         "max_abs_err": bwd_err, "ms": bwd_rows[0]["ms"], "plain_ms": bwd_rows[0]["plain_ms"],
+         "shapes": bwd_rows},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

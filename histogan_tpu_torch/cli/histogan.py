@@ -1,10 +1,12 @@
-"""CLI: sample HistoGAN given target histogram(s), on a GPU or the CPU.
+"""CLI: train HistoGAN, or sample from it given target histogram(s), on
+a GPU or the CPU.
 
-The counterpart of ``histogan_tpu/cli/histogan.py`` with the same flags
-and defaults, plus ``--device``. This slice ports ``--generate``: npy /
-image / directory targets with tile doubling. Training comes with a
-later slice and raises NotImplementedError here.
+The counterpart of ``histogan_tpu/cli/histogan.py`` with its flags and
+defaults, plus ``--device``: training with NaN retry, ``--generate`` for
+npy / image / directory targets with tile doubling, ``--load_pt`` and
+``--export_pt`` (reference-layout ``.pt`` files).
 
+    histogan-torch --data ./dataset --name m --new True
     histogan-torch --generate True --target_hist t.jpg --load_pt m.pt
 """
 
@@ -74,6 +76,76 @@ def sample_target(model, hist_block, *, image: Optional[np.ndarray] = None,
                           num_image_tiles=num_image_tiles, **eval_kwargs)
 
 
+def train_from_folder(
+    data="./dataset/", results_dir="./results", models_dir="./models",
+    name="test", new=False, load_from=-1, image_size=128,
+    network_capacity=16, transparent=False, batch_size=2,
+    gradient_accumulate_every=8, num_train_steps=150000, learning_rate=2e-4,
+    num_workers=None, save_every=1000, trunc_psi=0.75, fq_layers=(),
+    fq_dict_size=256, attn_layers=(), hist_method="inverse-quadratic",
+    hist_resizing="sampling", hist_sigma=0.02, hist_bin=64, hist_insz=150,
+    alpha=2, aug_prob=0.0, dataset_aug_prob=0.0, aug_types=None, seed=42,
+    load_pt=None, export_pt=None, precision="fp32", calculate_fid_every=None,
+    opt_state_dtype=None, ema_dtype=None, remat=False, device="cuda",
+):
+    """Train from a folder of images (or, with ``export_pt``, write the
+    loaded model as a reference-layout .pt and stop)."""
+    from histogan_tpu_torch.train.trainer import NanException, Trainer
+
+    model = Trainer(
+        name, results_dir, models_dir, batch_size=batch_size,
+        gradient_accumulate_every=gradient_accumulate_every,
+        image_size=image_size, network_capacity=network_capacity,
+        transparent=transparent, lr=learning_rate, save_every=save_every,
+        trunc_psi=trunc_psi, fq_layers=fq_layers, fq_dict_size=fq_dict_size,
+        attn_layers=attn_layers, hist_insz=hist_insz, hist_bin=hist_bin,
+        hist_sigma=hist_sigma, hist_resizing=hist_resizing,
+        hist_method=hist_method, aug_prob=aug_prob,
+        dataset_aug_prob=dataset_aug_prob, aug_types=aug_types, seed=seed,
+        precision=precision, calculate_fid_every=calculate_fid_every,
+        opt_state_dtype=opt_state_dtype, ema_dtype=ema_dtype, remat=remat,
+        num_workers=num_workers, device=device,
+    )
+    if not new:
+        model.init_GAN()
+        model.load(load_from)
+    else:
+        model.clear()
+        model.init_GAN()
+
+    if load_pt is not None:
+        skipped = model.load_pt(load_pt)
+        print(f"installed reference checkpoint {load_pt}"
+              + (f"; {len(skipped)} keys outside the GAN's modules not loaded"
+                 if skipped else ""))
+
+    if export_pt is not None:
+        count = model.export_pt(export_pt)
+        print(f"exported reference-layout checkpoint to {export_pt} ({count} tensors)")
+        return
+
+    print("\nStart training....\n")
+    print(f"Alpha = {alpha}")
+    model.set_data_src(data)
+    try:
+        total = num_train_steps - model.steps
+        for i in range(total):
+            tries = 0
+            while True:
+                try:
+                    model.train(alpha)
+                    break
+                except NanException:
+                    tries += 1
+                    if tries >= 3:
+                        raise
+            if i % 50 == 0:
+                print(f"{name}<{data}>: step {model.steps} ({i + 1}/{total})")
+                model.print_log()
+    finally:
+        model.close()
+
+
 def generate_from_folder(
     results_dir="./results", models_dir="./models", name="test", new=False,
     image_size=128, network_capacity=16, transparent=False, batch_size=2,
@@ -81,7 +153,10 @@ def generate_from_folder(
     num_image_tiles=8, trunc_psi=0.75, hist_method="inverse-quadratic",
     hist_resizing="sampling", hist_sigma=0.02, hist_bin=64, hist_insz=150,
     target_hist=None, seed=42, load_pt=None, precision="fp32", device="cuda",
+    load_from=-1,
 ):
+    """Sample for each target; without ``new`` from the saved checkpoint
+    ``load_from`` (the latest for -1), as the JAX CLI does."""
     from histogan_tpu_torch.ops.histogram import RGBuvHistBlock
     from histogan_tpu_torch.train.trainer import Trainer
 
@@ -97,14 +172,14 @@ def generate_from_folder(
     if new:
         model.init_GAN()
     else:
-        model.load_config()
+        model.load(load_from)
     if load_pt is not None:
         skipped = model.load_pt(load_pt)
         print(f"loaded reference checkpoint {load_pt}"
-              + (f"; {len(skipped)} keys not loaded (the discriminator is not "
-                 f"ported yet)" if skipped else ""))
-    else:
-        print(f"no --load_pt given: sampling from weights drawn with seed {seed}")
+              + (f"; {len(skipped)} keys outside the GAN's modules not loaded"
+                 if skipped else ""))
+    elif new or model.store.latest() is None:
+        print(f"no --load_pt and no checkpoint: sampling from weights drawn with seed {seed}")
 
     timestamp = datetime.now().strftime("%m-%d-%Y_%H-%M-%S")
     if save_noise_latent:
@@ -150,7 +225,7 @@ def get_args(argv=None):
     add("--load_pt", default=None, type=str,
         help="Load a reference-layout .pt checkpoint.")
     add("--export_pt", default=None, type=str,
-        help="Not ported yet (needs the discriminator).")
+        help="Write the loaded model as a reference-layout .pt and exit.")
     add("--image_size", type=int, default=256)
     add("--network_capacity", type=int, default=16)
     add("--transparent", type=str2bool, default=False)
@@ -168,6 +243,10 @@ def get_args(argv=None):
     add("--trunc_psi", type=float, default=0.75)
     add("--fp16", type=str2bool, default=False)
     add("--precision", choices=("fp32", "bf16"), default=None)
+    add("--opt_state_dtype", default=None, choices=("fp32", "bf16"))
+    add("--ema_dtype", default=None, choices=("fp32", "bf16"))
+    add("--remat", type=str2bool, default=False)
+    add("--calculate_fid_every", type=int, default=None)
     add("--fq_layers", nargs="*", type=int, default=[])
     add("--fq_dict_size", type=int, default=256)
     add("--attn_layers", nargs="*", type=int, default=[])
@@ -183,29 +262,45 @@ def get_args(argv=None):
     add("--aug_types", nargs="+", default=["translation", "cutout"])
     add("--seed", type=int, default=42)
     add("--device", default="cuda",
-        help="torch device to sample on (default cuda; cpu runs the plain "
-             "versions of the kernels)")
+        help="torch device to train or sample on (default cuda; cpu runs "
+             "the plain versions of the kernels)")
     return parser.parse_args(argv)
 
 
 def main(argv=None):
     args = get_args(argv)
-    if not args.generate or args.export_pt is not None:
-        raise NotImplementedError(
-            "histogan-torch ports sampling (--generate True) only; training "
-            "and --export_pt are not ported yet")
-    generate_from_folder(
-        results_dir=args.results_dir, models_dir=args.models_dir, name=args.name,
-        new=args.new, image_size=args.image_size,
-        network_capacity=args.network_capacity, transparent=args.transparent,
-        batch_size=args.batch_size, save_noise_latent=args.save_n_l,
-        target_noise_file=args.target_n, target_latent_file=args.target_l,
-        num_image_tiles=args.num_image_tiles, trunc_psi=args.trunc_psi,
+    precision = args.precision or ("bf16" if args.fp16 else "fp32")
+    if args.generate:
+        return generate_from_folder(
+            results_dir=args.results_dir, models_dir=args.models_dir, name=args.name,
+            new=args.new, image_size=args.image_size,
+            network_capacity=args.network_capacity, transparent=args.transparent,
+            batch_size=args.batch_size, save_noise_latent=args.save_n_l,
+            target_noise_file=args.target_n, target_latent_file=args.target_l,
+            num_image_tiles=args.num_image_tiles, trunc_psi=args.trunc_psi,
+            hist_method=args.hist_method, hist_resizing=args.hist_resizing,
+            hist_sigma=args.hist_sigma, hist_bin=args.hist_bin, hist_insz=args.hist_insz,
+            target_hist=args.target_hist, seed=args.seed, load_pt=args.load_pt,
+            precision=precision, device=args.device, load_from=args.load_from,
+        )
+    return train_from_folder(
+        data=args.data, results_dir=args.results_dir, models_dir=args.models_dir,
+        name=args.name, new=args.new, load_from=args.load_from,
+        image_size=args.image_size, network_capacity=args.network_capacity,
+        transparent=args.transparent, batch_size=args.batch_size,
+        gradient_accumulate_every=args.gradient_accumulate_every,
+        num_train_steps=args.num_train_steps, learning_rate=args.learning_rate,
+        num_workers=args.num_workers, save_every=args.save_every,
+        trunc_psi=args.trunc_psi, fq_layers=args.fq_layers,
+        fq_dict_size=args.fq_dict_size, attn_layers=args.attn_layers,
         hist_method=args.hist_method, hist_resizing=args.hist_resizing,
         hist_sigma=args.hist_sigma, hist_bin=args.hist_bin, hist_insz=args.hist_insz,
-        target_hist=args.target_hist, seed=args.seed, load_pt=args.load_pt,
-        precision=args.precision or ("bf16" if args.fp16 else "fp32"),
-        device=args.device,
+        alpha=args.alpha, aug_prob=args.aug_prob, dataset_aug_prob=args.dataset_aug_prob,
+        aug_types=args.aug_types, seed=args.seed, load_pt=args.load_pt,
+        export_pt=args.export_pt, precision=precision,
+        calculate_fid_every=args.calculate_fid_every,
+        opt_state_dtype=args.opt_state_dtype, ema_dtype=args.ema_dtype,
+        remat=args.remat, device=args.device,
     )
 
 

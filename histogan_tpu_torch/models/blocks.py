@@ -1,5 +1,6 @@
-"""Generator building blocks (NCHW nn.Modules under the reference
-state-dict names), the counterpart of ``histogan_tpu/models/blocks.py``.
+"""Generator and discriminator building blocks (NCHW nn.Modules under
+the reference state-dict names), the counterpart of
+``histogan_tpu/models/blocks.py``.
 
 Style and noise override keyword arguments reproduce the reference's
 ``forward_`` paths that the projection tools use
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from histogan_tpu_torch.models.layers import TorchLinear, leaky_relu
+from histogan_tpu_torch.models.layers import TorchConv, TorchLinear, leaky_relu
 from histogan_tpu_torch.ops.conv2dmod import conv2d_mod
 from histogan_tpu_torch.ops.resize import upsample2x
 from histogan_tpu_torch.utils import inits
@@ -115,3 +116,26 @@ class GeneratorBlock(nn.Module):
 
         rgb = self.to_rgb(x, prev_rgb, istyle, style=rgb_style)
         return x, rgb
+
+
+class DiscriminatorBlock(nn.Module):
+    """Residual downsampling block (histoGAN/histoGAN.py:505-526) as the
+    JAX package computes it: ``net(x) + conv_res(x)``, then the strided
+    ``downsample`` conv. Reference names: ``conv_res``, ``net.0``,
+    ``net.2``, ``downsample``."""
+
+    def __init__(self, input_channels: int, filters: int, downsample: bool = True):
+        super().__init__()
+        self.conv_res = TorchConv(input_channels, filters, 1)
+        self.net = nn.Sequential(
+            TorchConv(input_channels, filters, 3, padding=1), nn.LeakyReLU(0.2),
+            TorchConv(filters, filters, 3, padding=1), nn.LeakyReLU(0.2),
+        )
+        self.downsample = (TorchConv(filters, filters, 3, stride=2, padding=1)
+                           if downsample else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.net(x) + self.conv_res(x)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x

@@ -33,3 +33,17 @@ class TorchLinear(nn.Linear):
             return
         inits.kaiming_normal_(self.weight, generator)
         inits.torch_default_bias_(self.bias, self.in_features, generator)
+
+
+class TorchConv(nn.Conv2d):
+    """nn.Conv2d with kaiming-normal weight and torch-default uniform bias
+    (``histogan_tpu/models/layers.py::TorchConv``), NCHW / OIHW."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 stride: int = 1, padding: int = 0):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
+        inits.kaiming_normal_(self.weight, generator)
+        inits.torch_default_bias_(self.bias, self.weight[0].numel(), generator)

@@ -5,11 +5,12 @@ of an NHWC batch, with the reference's quirks kept (``sampling`` picks
 ``h`` rows, the resize squashes both sides to ``insz``, fp32 bin
 centers, EPS 1e-6 in the log, the sqrt and the normalisation).
 
-On a CUDA tensor the configuration the hand-written kernel covers
-(rgb-uv, inverse-quadratic, intensity scale on, 64 bins on [-3, 3], all
-three planes) goes through ``histogram_cuda.histogram_feature_cuda``.
-Every other configuration, and every CPU tensor, is the plain batched
-einsum below.
+The configuration the hand-written kernels cover (rgb-uv,
+inverse-quadratic, intensity scale on, 64 bins on [-3, 3], all three
+planes) goes through ``histogram_cuda.histogram_feature_cuda``: the
+kernels on a CUDA tensor, their plain versions (forward and backward) on
+a CPU tensor. Every other configuration is the plain batched einsum
+below.
 """
 
 from __future__ import annotations
@@ -96,7 +97,9 @@ def histogram_feature(
     lo, hi = float(boundary[0]), float(boundary[1])
     if lo > hi:
         lo, hi = hi, lo
-    if x.is_cuda and _kernel_covers(space, h, method, intensity_scale, lo, hi, green_only):
+    if _kernel_covers(space, h, method, intensity_scale, lo, hi, green_only):
+        # the kernels' autograd op: K1/K2 on a CUDA tensor, their plain
+        # versions on a CPU tensor
         return histogram_cuda.histogram_feature_cuda(
             x, h=h, insz=insz, resizing=resizing, sigma=sigma)
     thresh_eps = (abs(lo) + abs(hi)) / h

@@ -1,20 +1,23 @@
-"""RGB-uv histogram through a CUDA kernel written for Hopper (sm_90a).
+"""RGB-uv histogram through CUDA kernels written for Hopper (sm_90a).
 
 The counterpart of ``histogan_tpu/ops/histogram_pallas.py``. Clip,
 resize and log-chroma packing are plain torch; the contraction
 ``hist[b, c] = (iy * ku)^T kv`` over the packed pixels is
-``csrc/histogram_fwd.cu``. The kernel covers the configuration the
-Pallas kernel covers: rgb-uv, inverse-quadratic, intensity scale on, 64
+``csrc/histogram_fwd.cu`` (K1) and its gradient with respect to the
+packed pixels is ``csrc/histogram_bwd.cu`` (K2), the two halves of one
+``torch.autograd.Function``. The kernels cover the configuration the
+Pallas kernels cover: rgb-uv, inverse-quadratic, intensity scale on, 64
 bins on [-3, 3].
 
-``hist_core`` takes the plain version, ``hist_core_reference``, only for
-a tensor on the CPU. For a CUDA tensor it launches the kernel or raises:
-a missing ``nvcc``, a failed build or a refused launch is an error, never
-a silent fall back to the einsum.
+``hist_core`` takes the plain versions, ``hist_core_reference`` and
+``hist_core_bwd_reference``, only for a tensor on the CPU. For a CUDA
+tensor it launches the kernels or raises: a missing ``nvcc``, a failed
+build or a refused launch is an error, never a silent fall back to the
+einsum.
 
-The kernel is built with ``nvcc`` at first use into ``build/`` beside the
-package (the repository's ignored build directory), keyed by a hash of
-the source and flags, and bound with ``ctypes``.
+Each kernel is built with ``nvcc`` at first use into ``build/`` beside
+the package (the repository's ignored build directory), keyed by a hash
+of its own source and the flags, and bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -26,11 +29,12 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 EPS = 1e-6
 H_BINS = 64
@@ -39,16 +43,19 @@ MIN_CHUNK = 256  # fewest pixels a block takes before the split stops
 BLOCKS_PER_SM = 2
 REFERENCE_TILE = 512  # pixels per tile of the plain version, as on the TPU
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "histogram_fwd.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = {"histogram_fwd": CSRC / "histogram_fwd.cu",  # K1
+           "histogram_bwd": CSRC / "histogram_bwd.cu"}  # K2
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# Kernel launches since the last reset; only a successful launch of the
-# CUDA kernel adds to it.
+# Kernel launches since the last reset, K1 and K2 apart; only a
+# successful launch of the CUDA kernel adds to its count.
 launches = 0
+bwd_launches = 0
 
 
 def _centers(device=None) -> torch.Tensor:
@@ -93,6 +100,37 @@ def hist_core_reference(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor
     return torch.stack(planes, dim=1)
 
 
+def hist_core_bwd_reference(packed: torch.Tensor, g: torch.Tensor,
+                            inv_sigma2: float) -> torch.Tensor:
+    """Plain torch version of the backward kernel: d(loss)/d(packed)
+    (B, N, 8) from g = d(loss)/d(hist) (B, 3, 64, 64), written out as the
+    Pallas ``_bwd_kernel``'s docstring states it, over the same 512-pixel
+    tiles. Per plane, with ``kvg = kv @ g^T`` and ``kug = (iy ku) @ g``:
+    du = sum_i iy kvg (-2 (u - c_i) inv_sigma2) ku^2, dv likewise over
+    kug and kv, and diy = sum over the planes of sum_i ku kvg; column 7
+    is 0."""
+    b, n, _ = packed.shape
+    tiles = F.pad(packed, (0, 0, 0, (-n) % REFERENCE_TILE)).reshape(b, -1, REFERENCE_TILE, 8)
+    centers = _centers(packed.device)
+    iy = tiles[..., 6:7]
+    cols = []
+    diy = torch.zeros_like(iy)
+    for c in range(3):
+        du_arg = tiles[..., 2 * c : 2 * c + 1] - centers
+        dv_arg = tiles[..., 2 * c + 1 : 2 * c + 2] - centers
+        ku = 1.0 / (1.0 + torch.square(du_arg) * inv_sigma2)
+        kv = 1.0 / (1.0 + torch.square(dv_arg) * inv_sigma2)
+        gc = g[:, c, None]  # (B, 1, 64, 64), broadcast over the tiles
+        kvg = torch.matmul(kv, gc.transpose(-1, -2))
+        kug = torch.matmul(iy * ku, gc)
+        du = iy * kvg * (-2.0 * du_arg * inv_sigma2 * torch.square(ku))
+        dv = kug * (-2.0 * dv_arg * inv_sigma2 * torch.square(kv))
+        cols += [du.sum(dim=-1, keepdim=True), dv.sum(dim=-1, keepdim=True)]
+        diy = diy + (ku * kvg).sum(dim=-1, keepdim=True)
+    out = torch.cat(cols + [diy, torch.zeros_like(diy)], dim=-1)
+    return out.reshape(b, -1, 8)[:, :n]
+
+
 def split_pixels(batch: int, n_pixels: int, num_sms: int) -> Tuple[int, int]:
     """(chunk, n_chunks): how the kernel splits each image's pixels over
     blocks. Enough chunks that the batch's 3 * batch * n_chunks blocks
@@ -116,51 +154,81 @@ def _nvcc() -> str:
     if found is None:
         raise RuntimeError(
             f"nvcc not found (looked in {candidate} and on PATH); the "
-            f"histogram kernel is built from {SOURCE} at first use")
+            f"histogram kernels are built from {CSRC} at first use")
     return found
 
 
-def library_path() -> Path:
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libhistogram_fwd-{key.hexdigest()[:16]}.so"
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` (a key of SOURCES) is built,
+    keyed by its own source and the flags."""
+    key = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernel unless this source's library is already built.
-    The compiler's report (``-Xptxas -v``: registers, shared memory,
-    spills) is kept beside the library as ``.log``."""
-    lib = library_path()
-    if lib.is_file():
-        return lib
+def build(names=tuple(SOURCES)) -> Dict[str, Path]:
+    """Compile each named kernel whose library is not built yet, one
+    ``nvcc`` per source, all started together. The compiler's report
+    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
+    library as ``.log``. Returns {name: library path}."""
+    libs = {name: library_path(name) for name in names}
+    todo = [name for name, lib in libs.items() if not lib.is_file()]
+    if not todo:
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
-    return lib
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        tmp = libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        jobs.append((name, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
+            continue
+        libs[name].with_suffix(".log").write_text(out + err)
+        os.replace(tmp, libs[name])  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+_ARGTYPES = {
+    # packed, partial, out, batch, n_pixels, chunk, n_chunks, inv_sigma2, device, stream
+    "histogram_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                      ctypes.c_int, ctypes.c_void_p],
+    # packed, g, dpacked, batch, n_pixels, inv_sigma2, device, stream
+    "histogram_bwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                      ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
-    lib.histogram_fwd.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    lib.histogram_fwd.restype = ctypes.c_int
-    lib.histogram_fwd_error_string.argtypes = [ctypes.c_int]
-    lib.histogram_fwd_error_string.restype = ctypes.c_char_p
+def _library(name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build((name,))[name]))
+    fn = getattr(lib, name)
+    fn.argtypes = _ARGTYPES[name]
+    fn.restype = ctypes.c_int
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
     return lib
 
 
-def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
-    global launches
+def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+
+
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
+def _check_packed(packed: torch.Tensor) -> None:
     if packed.dtype != torch.float32:
         raise TypeError(f"packed must be float32, got {packed.dtype}")
     if packed.ndim != 3 or packed.shape[-1] != 8:
@@ -170,7 +238,13 @@ def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
     b, n, _ = packed.shape
     if not 1 <= b <= 65535 or n < 1:
         raise ValueError(f"packed shape {tuple(packed.shape)} is outside the kernel's range")
-    lib = _library()
+
+
+def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
+    global launches
+    _check_packed(packed)
+    b, n, _ = packed.shape
+    lib = _library("histogram_fwd")
     dev = packed.device
     chunk, n_chunks = split_pixels(
         b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
@@ -180,37 +254,63 @@ def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
                if n_chunks > 1 else out)
     err = lib.histogram_fwd(
         packed.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, chunk,
-        n_chunks, float(inv_sigma2), dev.index if dev.index is not None
-        else torch.cuda.current_device(),
+        n_chunks, float(inv_sigma2), _device_index(dev),
         torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"histogram_fwd launch failed: CUDA error {err} "
-            f"({lib.histogram_fwd_error_string(err).decode()})")
+    _check_launch(lib, "histogram_fwd", err)
     launches += 1
     return out
 
 
+def _launch_bwd(packed: torch.Tensor, g: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
+    """K2: d(loss)/d(packed) from g = d(loss)/d(hist). ``g`` as autograd
+    hands it over may be expanded or strided; it is made contiguous here."""
+    global bwd_launches
+    _check_packed(packed)
+    b, n, _ = packed.shape
+    if g.dtype != torch.float32:
+        raise TypeError(f"g must be float32, got {g.dtype}")
+    if tuple(g.shape) != (b, 3, H_BINS, H_BINS):
+        raise ValueError(f"g must be {(b, 3, H_BINS, H_BINS)}, got {tuple(g.shape)}")
+    if g.device != packed.device:
+        raise ValueError(f"g is on {g.device}, packed on {packed.device}")
+    g = g.contiguous()
+    lib = _library("histogram_bwd")
+    dev = packed.device
+    out = torch.empty_like(packed)
+    err = lib.histogram_bwd(
+        packed.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, float(inv_sigma2),
+        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    _check_launch(lib, "histogram_bwd", err)
+    bwd_launches += 1
+    return out
+
+
 class _HistCore(torch.autograd.Function):
-    """The kernel as an autograd op. Its backward (the Pallas
-    ``_bwd_kernel``) is ported with training."""
+    """The histogram contraction as an autograd op: K1 forward and K2
+    backward on a CUDA tensor, their plain versions on a CPU tensor (so
+    the CPU training path runs the formulas K2 implements)."""
 
     @staticmethod
     def forward(ctx, packed, inv_sigma2):
-        return _launch(packed, inv_sigma2)
+        ctx.save_for_backward(packed)
+        ctx.inv_sigma2 = inv_sigma2
+        if packed.is_cuda:
+            return _launch(packed, inv_sigma2)
+        return hist_core_reference(packed, inv_sigma2)
 
     @staticmethod
+    @once_differentiable
     def backward(ctx, grad):
-        raise NotImplementedError(
-            "the histogram kernel's backward is not ported yet; it comes "
-            "with training")
+        (packed,) = ctx.saved_tensors
+        if packed.is_cuda:
+            return _launch_bwd(packed, grad, ctx.inv_sigma2), None
+        return hist_core_bwd_reference(packed, grad, ctx.inv_sigma2), None
 
 
 def hist_core(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
-    """(B, N, 8) packed pixels -> (B, 3, 64, 64) un-normalised histogram."""
-    if packed.device.type == "cpu":
-        return hist_core_reference(packed, inv_sigma2)
-    if packed.device.type != "cuda":
+    """(B, N, 8) packed pixels -> (B, 3, 64, 64) un-normalised histogram,
+    differentiable with respect to ``packed``."""
+    if packed.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no histogram kernel for device {packed.device}")
     return _HistCore.apply(packed, float(inv_sigma2))
 

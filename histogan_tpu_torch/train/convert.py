@@ -19,8 +19,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-# state-dict prefixes the sampler loads; D.* waits for the discriminator
-SAMPLER_PREFIXES = ("S", "H", "G", "SE", "HE", "GE")
+# the reference state dict's prefixes (histoGAN/histoGAN.py:634-715)
+PREFIXES = ("S", "H", "G", "D", "SE", "HE", "GE")
 
 
 def _np(x) -> np.ndarray:
@@ -36,6 +36,13 @@ def _count(tree: Mapping, fmt: str) -> int:
 
 def _linear(tree: Mapping, prefix: str, out: Dict) -> None:
     out[f"{prefix}.weight"] = np.ascontiguousarray(_np(tree["kernel"]).T)
+    out[f"{prefix}.bias"] = _np(tree["bias"])
+
+
+def _conv(tree: Mapping, prefix: str, out: Dict) -> None:
+    # HWIO -> OIHW
+    out[f"{prefix}.weight"] = np.ascontiguousarray(
+        np.transpose(_np(tree["kernel"]), (3, 2, 0, 1)))
     out[f"{prefix}.bias"] = _np(tree["bias"])
 
 
@@ -71,16 +78,41 @@ def generator_state(tree: Mapping, prefix: str, out: Dict) -> None:
         generator_block_state(tree[f"blocks_{i}"], f"{prefix}.blocks.{i}", out)
 
 
+def discriminator_state(tree: Mapping, prefix: str, out: Dict) -> None:
+    """The JAX package's ``export_discriminator`` without attention or VQ:
+    ``net0``/``net1``/``down`` become ``net.0``/``net.2``/``downsample``,
+    and ``to_logit``'s input axis is reordered from the JAX flatten
+    (2, 2, C) to the reference's NCHW flatten (C, 2, 2)."""
+    unported = [k for k in tree if k.startswith(("attn_", "vq_"))]
+    if unported:
+        raise NotImplementedError(
+            f"discriminator attention / vector-quantize layers are not ported: {unported}")
+    for i in range(_count(tree, "blocks_{}")):
+        blk = tree[f"blocks_{i}"]
+        b = f"{prefix}.blocks.{i}"
+        _conv(blk["conv_res"], f"{b}.conv_res", out)
+        _conv(blk["net0"], f"{b}.net.0", out)
+        _conv(blk["net1"], f"{b}.net.2", out)
+        if "down" in blk:
+            _conv(blk["down"], f"{b}.downsample", out)
+    w = _np(tree["to_logit"]["kernel"]).T  # (1, 2*2*C), NHWC order
+    c = w.shape[1] // 4
+    out[f"{prefix}.to_logit.weight"] = np.ascontiguousarray(
+        w.reshape(1, 2, 2, c).transpose(0, 3, 1, 2).reshape(1, -1))
+    out[f"{prefix}.to_logit.bias"] = _np(tree["to_logit"]["bias"])
+
+
 def state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX parameter bundle {'params_g': {'S','H','G'}, 'ema': {...}} ->
-    the reference-layout state dict for the S/H/G/SE/HE/GE prefixes.
-    ``params_d`` is not converted: the discriminator is not ported yet."""
+    """JAX parameter bundle {'params_g': {'S','H','G'}, 'params_d',
+    'ema': {...}} -> the reference-layout state dict (every prefix of
+    PREFIXES), as ``export_histogan_checkpoint`` writes it."""
     out: Dict[str, np.ndarray] = {}
     for tree, (s, h, g) in ((bundle["params_g"], ("S", "H", "G")),
                             (bundle["ema"], ("SE", "HE", "GE"))):
         style_vectorizer_state(tree["S"], s, out)
         hist_vectorizer_state(tree["H"], h, out)
         generator_state(tree["G"], g, out)
+    discriminator_state(bundle["params_d"], "D", out)
     return {k: torch.tensor(v) for k, v in out.items()}
 
 
@@ -91,9 +123,9 @@ def load_reference_pt(path) -> Dict[str, torch.Tensor]:
 
 
 def split_by_prefix(sd: Mapping[str, torch.Tensor]):
-    """-> ({prefix: sub-state-dict} for SAMPLER_PREFIXES, sorted keys of
-    every other prefix)."""
-    parts = {p: {} for p in SAMPLER_PREFIXES}
+    """-> ({prefix: sub-state-dict} for PREFIXES, sorted keys of every
+    other prefix)."""
+    parts = {p: {} for p in PREFIXES}
     others = []
     for key, value in sd.items():
         prefix, _, rest = key.partition(".")

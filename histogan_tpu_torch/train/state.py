@@ -1,0 +1,70 @@
+"""Training state, the counterpart of ``histogan_tpu/train/state.py``.
+
+JAX keeps the state as an immutable pytree that each step returns anew;
+here it is the modules and optimizers themselves, which a step updates in
+place (no second copy of the weights, the EMA or the optimizer moments).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List
+
+import torch
+from torch import nn
+
+from histogan_tpu_torch.optim.diffgrad import DiffGrad
+
+# modules by their reference state-dict prefix: live S/H/G/D, EMA SE/HE/GE
+LIVE = ("S", "H", "G", "D")
+EMA = {"SE": "S", "HE": "H", "GE": "G"}
+
+
+@dataclasses.dataclass
+class HistoGANState:
+    """Everything a training step reads and updates and a checkpoint
+    holds (the reference saves the GAN's state dict; the optimizers'
+    state, ``pl_mean`` and the step are kept too, so a resume continues
+    the same run)."""
+
+    S: nn.Module
+    H: nn.Module
+    G: nn.Module
+    D: nn.Module
+    SE: nn.Module
+    HE: nn.Module
+    GE: nn.Module
+    opt_g: DiffGrad
+    opt_d: DiffGrad
+    pl_mean: torch.Tensor  # 0-d fp32 on the training device
+    step: int = 0
+
+    def modules(self) -> Dict[str, nn.Module]:
+        return {k: getattr(self, k) for k in (*LIVE, *EMA)}
+
+    def g_params(self) -> List[torch.Tensor]:
+        """The generator side's parameters, S then H then G (params_g)."""
+        return [p for k in ("S", "H", "G") for p in getattr(self, k).parameters()]
+
+    def ema_pairs(self):
+        """(EMA module, live module) for SE/HE/GE."""
+        return [(getattr(self, e), getattr(self, live)) for e, live in EMA.items()]
+
+    def reference_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The weights in the flat reference layout (``GAN.state_dict()``)."""
+        return {f"{prefix}.{k}": v for prefix, m in self.modules().items()
+                for k, v in m.state_dict().items()}
+
+    @torch.no_grad()
+    def reset_ema(self) -> None:
+        """reset_parameter_averaging (histoGAN/histoGAN.py:999-1000)."""
+        for ema, live in self.ema_pairs():
+            torch._foreach_copy_(list(ema.parameters()), list(live.parameters()))
+
+    @torch.no_grad()
+    def update_ema(self, beta: float = 0.995) -> None:
+        """EMA <- beta * EMA + (1 - beta) * live (histoGAN/histoGAN.py:996-998)."""
+        for ema, live in self.ema_pairs():
+            e = list(ema.parameters())
+            torch._foreach_mul_(e, beta)
+            torch._foreach_add_(e, list(live.parameters()), alpha=1.0 - beta)

@@ -1,4 +1,5 @@
-"""The histogram kernel on an NVIDIA GPU against its plain torch version.
+"""The histogram kernels (K1 forward, K2 backward) on an NVIDIA GPU
+against their plain torch versions.
 
 These tests need a CUDA card and nvcc; elsewhere they skip. They import
 no jax, so on a machine with a card and without jax they run without the
@@ -89,11 +90,72 @@ def test_other_configs_stay_plain(dev):
     assert histogram_cuda.launches == before
 
 
-def test_backward_is_not_ported(dev):
-    packed = _packed(1, 100, seed=5, dev=dev).requires_grad_(True)
-    out = histogram_cuda.hist_core(packed, INV_SIGMA2)
-    with pytest.raises(NotImplementedError):
-        out.sum().backward()
+def _g(b, seed, dev):
+    g = 1e-3 * np.random.default_rng(seed).standard_normal((b, 3, 64, 64), dtype=np.float32)
+    return torch.from_numpy(g).to(dev)
+
+
+def _assert_bwd_close(got, want):
+    """Each of the 8 columns within 1e-5 of its largest plain entry;
+    column 7 exactly 0."""
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[..., 7], torch.zeros_like(got[..., 7]))
+    for c in range(7):
+        err = (got[..., c] - want[..., c]).abs().max().item()
+        assert err <= 1e-5 * want[..., c].abs().max().item(), c
+
+
+# ragged edges, one block and many, and the main path's shapes
+@pytest.mark.parametrize("b,n", [(1, 1), (2, 127), (3, 4097), (16, 64 * 64), (16, 150 * 150)])
+def test_backward_kernel_matches_plain(dev, b, n):
+    packed = _packed(b, n, seed=b * 7 + n, dev=dev)
+    g = _g(b, seed=n, dev=dev)
+    got = histogram_cuda._launch_bwd(packed, g, INV_SIGMA2)
+    want = histogram_cuda.hist_core_bwd_reference(packed, g, INV_SIGMA2)
+    torch.cuda.synchronize()
+    assert got.shape == (b, n, 8)
+    _assert_bwd_close(got, want)
+
+
+def test_backward_goes_through_the_kernel(dev):
+    packed = _packed(2, 5000, seed=5, dev=dev).requires_grad_(True)
+    g = _g(2, seed=6, dev=dev)
+    before = histogram_cuda.bwd_launches
+    histogram_cuda.hist_core(packed, INV_SIGMA2).backward(g)
+    assert histogram_cuda.bwd_launches == before + 1
+    _assert_bwd_close(packed.grad, histogram_cuda.hist_core_bwd_reference(
+        packed.detach(), g, INV_SIGMA2))
+    # autograd hands sum()'s gradient over expanded; the wrapper copies it
+    packed.grad = None
+    histogram_cuda.hist_core(packed, INV_SIGMA2).sum().backward()
+    _assert_bwd_close(packed.grad, histogram_cuda.hist_core_bwd_reference(
+        packed.detach(), torch.ones(2, 3, 64, 64, device=dev), INV_SIGMA2))
+
+
+def test_backward_is_deterministic(dev):
+    packed = _packed(4, 22500, seed=7, dev=dev)
+    g = _g(4, seed=8, dev=dev)
+    a = histogram_cuda._launch_bwd(packed, g, INV_SIGMA2)
+    b = histogram_cuda._launch_bwd(packed, g, INV_SIGMA2)
+    assert torch.equal(a, b)
+
+
+def test_loss_gradient_card_vs_cpu(dev):
+    from histogan_tpu_torch.ops.losses import hellinger_histogram_loss
+
+    rng = np.random.default_rng(9)
+    x = rng.random((4, 256, 256, 3), dtype=np.float32) * 1.2 - 0.1
+    target = histogram_feature(torch.from_numpy(rng.random((4, 256, 256, 3), dtype=np.float32)),
+                               resizing="sampling")
+    grads = {}
+    for d in ("cpu", dev):
+        xt = torch.from_numpy(x).to(d).requires_grad_(True)
+        loss = hellinger_histogram_loss(
+            target.to(d), histogram_feature(torch.relu(xt), resizing="sampling"))
+        loss.backward()
+        grads[torch.device(d).type] = xt.grad.cpu()
+    want = grads["cpu"]
+    assert (grads["cuda"] - want).abs().max().item() <= 1e-4 * want.abs().max().item()
 
 
 def test_rejects_what_the_kernel_does_not_take(dev):
@@ -104,3 +166,10 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         histogram_cuda.hist_core(packed[:, ::2], INV_SIGMA2)
     with pytest.raises(ValueError):
         histogram_cuda.hist_core(packed[..., :7].contiguous(), INV_SIGMA2)
+    g = _g(1, seed=7, dev=dev)
+    with pytest.raises(TypeError):
+        histogram_cuda._launch_bwd(packed, g.double(), INV_SIGMA2)
+    with pytest.raises(ValueError):
+        histogram_cuda._launch_bwd(packed, g[:, :2], INV_SIGMA2)
+    with pytest.raises(ValueError):
+        histogram_cuda._launch_bwd(packed, g.cpu(), INV_SIGMA2)

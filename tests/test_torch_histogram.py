@@ -159,5 +159,10 @@ def test_no_fallback_off_the_cpu():
 def test_build_dir_is_beside_the_package():
     pkg = os.path.dirname(os.path.dirname(histogram_cuda.__file__))
     assert str(histogram_cuda.BUILD_DIR).startswith(os.path.join(os.path.dirname(pkg), "build"))
-    assert histogram_cuda.SOURCE.is_file()
-    assert histogram_cuda.library_path().parent == histogram_cuda.BUILD_DIR
+    assert set(histogram_cuda.SOURCES) == {"histogram_fwd", "histogram_bwd"}
+    paths = {name: histogram_cuda.library_path(name) for name in histogram_cuda.SOURCES}
+    for name, src in histogram_cuda.SOURCES.items():
+        assert src.is_file()
+        assert paths[name].parent == histogram_cuda.BUILD_DIR
+        assert paths[name].name.startswith(f"lib{name}-")  # each keyed on its own source
+    assert len(set(paths.values())) == 2

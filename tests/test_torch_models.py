@@ -189,10 +189,9 @@ def test_state_dict_from_jax_matches_export_bitwise():
     }
     want = jax_convert.export_histogan_checkpoint(bundle)
     got = convert.state_dict_from_jax(bundle)
-    sampler = {k: v for k, v in want.items() if k.split(".")[0] in convert.SAMPLER_PREFIXES}
-    assert set(got) == set(sampler)
-    assert any(k.startswith("D.") for k in want)
-    for k, v in sampler.items():
+    assert set(got) == set(want)
+    assert {k.split(".")[0] for k in got} == set(convert.PREFIXES)
+    for k, v in want.items():
         assert got[k].dtype == torch.float32
         np.testing.assert_array_equal(got[k].numpy(), v, err_msg=k)
 

@@ -110,18 +110,19 @@ def test_evaluate_matches_jax(jax_trainer, bundle, tmp_path):
 
 
 def test_load_pt_of_jax_export(jax_trainer, bundle, tmp_path):
-    """The file JAX's --export_pt writes loads strictly into the port; its
-    D.* keys are reported as not loaded."""
+    """The file JAX's --export_pt writes loads strictly into the port,
+    every key of it, the discriminator's included."""
     sd = jax_convert.export_histogan_checkpoint(bundle)
     jax_convert.save_pt_file(sd, str(tmp_path / "m.pt"))
     port = Trainer(name="p", results_dir=str(tmp_path / "r"), models_dir=str(tmp_path / "m"),
                    device="cpu", **SMALL)
     port.init_GAN()
     skipped = port.load_pt(tmp_path / "m.pt")
-    assert skipped == sorted(k for k in sd if k.startswith("D."))
+    assert skipped == []
     bridged = convert.state_dict_from_jax(bundle)
     mine = port.reference_state_dict()
-    assert set(mine) == set(bridged)
+    assert set(mine) == set(bridged) == set(sd)
+    assert any(k.startswith("D.") for k in mine)
     assert all(torch.equal(mine[k], bridged[k]) for k in mine)
 
 
@@ -175,8 +176,14 @@ def test_cli_generate_from_npy(tmp_path):
 
 
 def test_cli_without_generate_or_gpu_raises(tmp_path):
+    # training without images, and options that are not ported, raise
+    (tmp_path / "empty").mkdir()
+    dirs = ["--results_dir", str(tmp_path / "res"), "--models_dir", str(tmp_path / "mod"),
+            "--image_size", "32", "--network_capacity", "2", "--new", "True"]
+    with pytest.raises(FileNotFoundError):
+        cli.main(["--device", "cpu", "--data", str(tmp_path / "empty"), *dirs])
     with pytest.raises(NotImplementedError):
-        cli.main(["--device", "cpu"])
+        cli.main(["--device", "cpu", "--aug_prob", "0.3", *dirs])
     if not torch.cuda.is_available():  # no silent move to the CPU
         with pytest.raises(RuntimeError):
             _cli(tmp_path, tmp_path / "x.npy", device="cuda")
@@ -190,10 +197,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'histogan_tpu', 'PIL')]\n"
         "assert not bad, bad\n"
-        "print(len([m for m in sys.modules if m.startswith('histogan_tpu_torch.')]))\n"
+        "print(' '.join(m for m in sys.modules if m.startswith('histogan_tpu_torch.')))\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 15
+    loaded = set(res.stdout.split())
+    assert len(loaded) >= 25
+    training = {"models.discriminator", "ops.losses", "optim.diffgrad", "train.steps",
+                "train.state", "train.checkpoint", "train.trainer", "data.dataset",
+                "utils.logging", "cli.histogan"}
+    assert {f"histogan_tpu_torch.{m}" for m in training} <= loaded
