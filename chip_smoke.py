@@ -7,16 +7,22 @@
 Phases, each printing its lines:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
   2. build: compiles both histogram kernels from histogan_tpu_torch/csrc
-     (one nvcc each, started together) and prints their ptxas reports;
+     (one nvcc each, started together), prints their ptxas reports, holds
+     K2 to no spills and counts the HMMA (tensor-core) instructions that
+     cuobjdump -sass finds in K2's library, which must be some;
   3. kernel: K1 (forward) against its plain torch version at the shapes
-     the paths give it, fp32 with TF32 off, timed with CUDA events;
+     the paths give it, fp32 with TF32 off; per shape the wrapper's time
+     (CUDA events), the kernels' device time (torch.profiler), the bound
+     and its share, and library_ms, one fp32 torch.matmul of the same
+     products on precomputed operands (a yardstick the port never calls);
   4. slice: HistoGAN sampling at 256 px, capacity 16, latent 512, style
      depth 8, batch 16: weights from seed 0 written as a reference-layout
      .pt and loaded back, one 384x512 target image, 8 x 8 tiles = 64
      samples through the CLI's per-target function;
   5. reference: two of those samples recomputed on the CPU with the same
      weights, latents and noise;
-  6. backward: K2 against its plain version, the same way as phase 3;
+  6. backward: K2 against its plain version, timed and bounded as in
+     phase 3;
   7. loss gradient: d Hellinger / d images at (16, 256, 256, 3) through the
      kernels against the same on the CPU (the plain versions);
   8. train: Trainer.set_data_src on 64 written images and Trainer.train
@@ -75,6 +81,7 @@ STEP_PARAM_CLOSE = 1e-6
 STEP_SETTLED_MIN = 0.5
 SHAPES = [(1, 150 * 150), (16, 64 * 64), (8, 250 * 250)]  # (B, N) of packed, K1
 BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097)]  # (B, N) of packed, K2
+MAIN_SHAPE = (16, 64 * 64)  # both kernels on the training path: the loss's histograms
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
 FLAGSHIP = dict(image_size=256, network_capacity=16, latent_dim=512, style_depth=8)
 CARD = "cuda"  # the device under test
@@ -99,6 +106,51 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int = 50) -> float:
+    """Device time per call of the kernels named hist_* that ``fn``
+    launches once each, from torch.profiler's device events over ``reps``
+    calls (the wrapper's host work left out). The profiler may drop an
+    event now and then, so each kernel's time is averaged over the
+    launches it recorded."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and "hist_" in e.key]
+    check(bool(events) and all(reps // 2 <= e.count <= reps for e in events),
+          f"the profiler saw each hist_ kernel up to {reps} times: "
+          f"{[(e.key[:40], e.count) for e in events]}")
+    return sum(e.self_device_time_total / e.count for e in events) / 1e3
+
+
+def bin_operands(histogram_cuda, packed):
+    """iy * ku and kv, (B, 3, N, 64) each, as the plain versions compute them."""
+    centers = histogram_cuda._centers(packed.device)
+    iy = packed[:, None, :, 6:7]
+    u = packed[..., 0:6:2].transpose(1, 2)[..., None]
+    v = packed[..., 1:6:2].transpose(1, 2)[..., None]
+    ku = 1.0 / (1.0 + torch.square(u - centers) * INV_SIGMA2)
+    kv = 1.0 / (1.0 + torch.square(v - centers) * INV_SIGMA2)
+    return iy * ku, kv
+
+
+def library_ms(a: torch.Tensor, b: torch.Tensor) -> float:
+    """One fp32 torch.matmul(a, b) (TF32 off), timed like the kernels."""
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 off for the library yardstick")
+    return time_ms(lambda: torch.matmul(a, b), 50)
+
+
+def bound_row(histogram_cuda, name: str, b: int, n: int, dev_ms: float) -> dict:
+    bms, by = histogram_cuda.bound_ms(histogram_cuda.kernel_work(name, b, n))
+    return {"bound_ms": bms, "bound_by": by, "share": bms / dev_ms}
+
+
 def alternate_ms(plain, kernel, reps: int = 50):
     """plain, kernel, kernel, plain; returns (kernel ms, plain ms, the four)."""
     p1, k1, k2, p2 = (time_ms(f, reps) for f in (plain, kernel, kernel, plain))
@@ -115,18 +167,35 @@ def reset_counts(histogram_cuda) -> None:
 
 
 # ---------------------------------------------------------------- phases
-def phase_build(histogram_cuda) -> None:
+def phase_build(histogram_cuda) -> Optional[int]:
+    """Builds both kernels; returns the HMMA count of K2's library (None
+    where the toolkit has no cuobjdump)."""
     t0 = time.perf_counter()
     libs = histogram_cuda.build()
     for name in libs:
         histogram_cuda._library(name)
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.2f} s")
+    spills = []
     for name, lib in sorted(libs.items()):
         log = lib.with_suffix(".log")
         if log.is_file():
             for line in log.read_text().splitlines():
                 if "registers" in line or "spill" in line:
                     print(f"build: {name} ptxas {line.strip()}")
+                if name == "histogram_bwd" and "spill" in line:
+                    spills.append(line.strip())
+    check(all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
+          f"K2 spills no registers: {spills}")
+    cuobjdump = Path(histogram_cuda._nvcc()).with_name("cuobjdump")
+    if not cuobjdump.is_file():
+        print(f"build: no {cuobjdump}; HMMA count not taken")
+        return None
+    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["histogram_bwd"])],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = sum("HMMA" in line for line in sass.splitlines())
+    print(f"build: histogram_bwd {hmma} HMMA instructions (cuobjdump -sass)")
+    check(hmma > 0, "K2 runs on the tensor cores (HMMA in its SASS)")
+    return hmma
 
 
 def phase_forward(histogram_cuda, dev):
@@ -147,13 +216,22 @@ def phase_forward(histogram_cuda, dev):
         ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
             lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2),
             lambda: histogram_cuda.hist_core(packed, INV_SIGMA2))
+        dev_ms = device_ms(lambda: histogram_cuda.hist_core(packed, INV_SIGMA2))
+        iy_ku, kv = bin_operands(histogram_cuda, packed)
+        lib_ms = library_ms(iy_ku.transpose(-1, -2), kv)  # (iy ku)^T kv
+        del iy_ku, kv
         chunk, n_chunks = histogram_cuda.split_pixels(
             b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        rows.append({"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "ms": ms,
-                     "plain_ms": plain_ms, "chunks": n_chunks, "chunk": chunk})
+        row = {"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "ms": ms, "device_ms": dev_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               **bound_row(histogram_cuda, "histogram_fwd", b, n, dev_ms),
+               "chunks": n_chunks, "chunk": chunk}
+        rows.append(row)
         print(f"kernel: B={b} N={n} max|d|={err:.3e} rel={rel:.3e} "
               f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms "
-              f"({n_chunks} chunks of {chunk} px)")
+              f"({n_chunks} chunks of {chunk} px); device {dev_ms:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share {row['share']:.3f}, "
+              f"library {lib_ms:.4f} ms")
     return max_err, rows
 
 
@@ -257,10 +335,20 @@ def phase_backward(histogram_cuda, dev):
         ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
             lambda: histogram_cuda.hist_core_bwd_reference(packed, g, INV_SIGMA2),
             lambda: histogram_cuda._launch_bwd(packed, g, INV_SIGMA2))
-        rows.append({"B": b, "N": n, "max_abs_err": err, "max_col_rel_err": max(col_rel),
-                     "ms": ms, "plain_ms": plain_ms})
+        dev_ms = device_ms(lambda: histogram_cuda._launch_bwd(packed, g, INV_SIGMA2))
+        iy_ku, kv = bin_operands(histogram_cuda, packed)
+        # [kv, iy ku] against [g^T, g], the three planes, in one call
+        lib_ms = library_ms(torch.stack([kv, iy_ku], dim=2),
+                            torch.stack([g.transpose(-1, -2), g], dim=2).contiguous())
+        del iy_ku, kv
+        row = {"B": b, "N": n, "max_abs_err": err, "max_col_rel_err": max(col_rel),
+               "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               **bound_row(histogram_cuda, "histogram_bwd", b, n, dev_ms)}
+        rows.append(row)
         print(f"backward: B={b} N={n} max|d|={err:.3e} worst column rel={max(col_rel):.3e} "
-              f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms")
+              f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms; device "
+              f"{dev_ms:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), share "
+              f"{row['share']:.3f}, library {lib_ms:.4f} ms")
     return max_err, rows
 
 
@@ -317,6 +405,7 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path]):
     t0 = time.perf_counter()
     t.set_data_src(str(work / "data"))
     pool_s = time.perf_counter() - t0
+    pool_launches = histogram_cuda.launches
     step_ms = []
     for step in range(10):
         torch.cuda.synchronize()
@@ -343,6 +432,9 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path]):
     print(f"train: pool of 64 images in {pool_s:.2f} s; steps 5-7 (plain) "
           f"{step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} imgs/s "
           f"(batch 16, fp32); peak {peak} bytes; launches {counts} on {smi}")
+    print(f"train: K1 launches {pool_launches} in the pool build, "
+          f"{counts['histogram_fwd'] - pool_launches} in the 10 steps; K2 launches "
+          f"{counts['histogram_bwd']} in the 10 steps")
 
     if profile is not None:
         profile_steps(t, profile)
@@ -556,7 +648,7 @@ def main(argv=None) -> int:
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     shutil.rmtree(WORK, ignore_errors=True)
 
-    phase_build(histogram_cuda)                                        # 2
+    hmma = phase_build(histogram_cuda)                                 # 2
     fwd_err, fwd_rows = phase_forward(histogram_cuda, dev)             # 3
     sampling_launches = phase_sampling(histogram_cuda, dev, smi)       # 4, 5
     bwd_err, bwd_rows = phase_backward(histogram_cuda, dev)            # 6
@@ -565,21 +657,24 @@ def main(argv=None) -> int:
     phase_card_vs_cpu()                                                # 9
     shutil.rmtree(WORK, ignore_errors=True)
 
+    def main_row(rows):  # the training path's shape
+        row = next(r for r in rows if (r["B"], r["N"]) == MAIN_SHAPE)
+        return {k: row[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms")}
+
     print(json.dumps({"kernels": [
         {"name": "histogram_fwd", "route": "cuda",
          "source": "histogan_tpu_torch/csrc/histogram_fwd.cu",
          "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
          "launches": counts["histogram_fwd"],
          "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"]},
-         "max_abs_err": fwd_err, "ms": fwd_rows[0]["ms"], "plain_ms": fwd_rows[0]["plain_ms"],
-         "shapes": fwd_rows},
+         "max_abs_err": fwd_err, **main_row(fwd_rows), "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
          "source": "histogan_tpu_torch/csrc/histogram_bwd.cu",
          "replaces": "histogan_tpu/ops/histogram_pallas.py:64",
          "launches": counts["histogram_bwd"],
          "launches_by_path": {"training": counts["histogram_bwd"]},
-         "max_abs_err": bwd_err, "ms": bwd_rows[0]["ms"], "plain_ms": bwd_rows[0]["plain_ms"],
-         "shapes": bwd_rows},
+         "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma, "shapes": bwd_rows},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -131,6 +131,46 @@ def hist_core_bwd_reference(packed: torch.Tensor, g: torch.Tensor,
     return out.reshape(b, -1, 8)[:, :n]
 
 
+def kernel_work(name: str, batch: int, n_pixels: int) -> Dict[str, int]:
+    """The work of one call of kernel ``name`` (a key of SOURCES) on
+    (batch, n_pixels) packed pixels: ``flop`` of the 64x64 products,
+    ``elementwise`` fp32 operations of the plain formulas, and ``bytes``
+    read once and written once.
+
+    Per (pixel, plane, bin): ku and kv are 5 operations each (difference,
+    square, scale, add, reciprocal) and iy*ku one; K1 does one product,
+    2 * 64 FLOP. K2 does two, 4 * 64 FLOP, and its epilogue adds 7 (du:
+    iy*kvg, the slope's four factors, the product, the sum), 6 (dv) and
+    2 (diy)."""
+    triples = 3 * batch * n_pixels * H_BINS
+    packed = batch * n_pixels * 8 * 4
+    hist = batch * 3 * H_BINS * H_BINS * 4
+    if name == "histogram_fwd":
+        return {"flop": 2 * H_BINS * triples, "elementwise": 11 * triples,
+                "bytes": packed + hist}
+    if name == "histogram_bwd":
+        return {"flop": 4 * H_BINS * triples, "elementwise": 26 * triples,
+                "bytes": 2 * packed + hist}
+    raise KeyError(name)
+
+
+# One H100 SXM at its full 700 W (NVIDIA's data sheet, dense): split TF32
+# runs three TF32 tensor-core products for one fp32 product.
+SPLIT_TF32_FLOPS = 495e12 / 3
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound_ms(work: Dict[str, int]) -> Tuple[float, str]:
+    """(ms, "operations" or "bytes"): the least time the card could take
+    for ``work`` (``kernel_work``), the largest of the products over the
+    split-TF32 rate, the elementwise operations over the fp32 rate and the
+    bytes over the memory rate."""
+    ops_s = max(work["flop"] / SPLIT_TF32_FLOPS, work["elementwise"] / FP32_FLOPS)
+    bytes_s = work["bytes"] / HBM_BYTES_PER_S
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
 def split_pixels(batch: int, n_pixels: int, num_sms: int) -> Tuple[int, int]:
     """(chunk, n_chunks): how the kernel splits each image's pixels over
     blocks. Enough chunks that the batch's 3 * batch * n_chunks blocks

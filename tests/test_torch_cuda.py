@@ -105,8 +105,10 @@ def _assert_bwd_close(got, want):
         assert err <= 1e-5 * want[..., c].abs().max().item(), c
 
 
-# ragged edges, one block and many, and the main path's shapes
-@pytest.mark.parametrize("b,n", [(1, 1), (2, 127), (3, 4097), (16, 64 * 64), (16, 150 * 150)])
+# ragged edges (N not a multiple of the 16-row step or of the chunk), one
+# block and many, and the main path's shapes
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 17), (2, 127), (3, 4097), (16, 64 * 64),
+                                 (16, 150 * 150), (2, 150 * 150 + 5)])
 def test_backward_kernel_matches_plain(dev, b, n):
     packed = _packed(b, n, seed=b * 7 + n, dev=dev)
     g = _g(b, seed=n, dev=dev)
