@@ -8,8 +8,8 @@ Phases, each printing its lines:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
   2. build: compiles both histogram kernels from histogan_tpu_torch/csrc
      (one nvcc each, started together), prints their ptxas reports, holds
-     K2 to no spills and counts the HMMA (tensor-core) instructions that
-     cuobjdump -sass finds in K2's library, which must be some;
+     both to no spills and counts the HMMA (tensor-core) instructions that
+     cuobjdump -sass finds in each library, which must be some;
   3. kernel: K1 (forward) against its plain torch version at the shapes
      the paths give it, fp32 with TF32 off; per shape the wrapper's time
      (CUDA events), the kernels' device time (torch.profiler), the bound
@@ -167,34 +167,35 @@ def reset_counts(histogram_cuda) -> None:
 
 
 # ---------------------------------------------------------------- phases
-def phase_build(histogram_cuda) -> Optional[int]:
-    """Builds both kernels; returns the HMMA count of K2's library (None
-    where the toolkit has no cuobjdump)."""
+def phase_build(histogram_cuda) -> dict:
+    """Builds both kernels, holds both to no register spills; returns
+    {name: the HMMA count of its library} (None where the toolkit has no
+    cuobjdump)."""
     t0 = time.perf_counter()
     libs = histogram_cuda.build()
     for name in libs:
         histogram_cuda._library(name)
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.2f} s")
-    spills = []
-    for name, lib in sorted(libs.items()):
-        log = lib.with_suffix(".log")
-        if log.is_file():
-            for line in log.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"build: {name} ptxas {line.strip()}")
-                if name == "histogram_bwd" and "spill" in line:
-                    spills.append(line.strip())
-    check(all("0 bytes spill stores, 0 bytes spill loads" in line for line in spills),
-          f"K2 spills no registers: {spills}")
+    hmma = {}
     cuobjdump = Path(histogram_cuda._nvcc()).with_name("cuobjdump")
-    if not cuobjdump.is_file():
-        print(f"build: no {cuobjdump}; HMMA count not taken")
-        return None
-    sass = subprocess.run([str(cuobjdump), "-sass", str(libs["histogram_bwd"])],
-                          capture_output=True, text=True, check=True).stdout
-    hmma = sum("HMMA" in line for line in sass.splitlines())
-    print(f"build: histogram_bwd {hmma} HMMA instructions (cuobjdump -sass)")
-    check(hmma > 0, "K2 runs on the tensor cores (HMMA in its SASS)")
+    for name, lib in sorted(libs.items()):
+        spills = []
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"build: {name} ptxas {line.strip()}")
+            if "spill" in line:
+                spills.append(line.strip())
+        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line
+                                   for line in spills), f"{name} spills no registers: {spills}")
+        if not cuobjdump.is_file():
+            print(f"build: no {cuobjdump}; HMMA count not taken")
+            hmma[name] = None
+            continue
+        sass = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                              capture_output=True, text=True, check=True).stdout
+        hmma[name] = sum("HMMA" in line for line in sass.splitlines())
+        print(f"build: {name} {hmma[name]} HMMA instructions (cuobjdump -sass)")
+        check(hmma[name] > 0, f"{name} runs on the tensor cores (HMMA in its SASS)")
     return hmma
 
 
@@ -209,9 +210,12 @@ def phase_forward(histogram_cuda, dev):
         g, w = normalise(got), normalise(want)
         err = (g - w).abs().max().item()
         rel = err / w.abs().max().item()
+        raw_rel = ((got - want).abs().max() / want.abs().max()).item()  # un-normalised
         check(bool(torch.isfinite(got).all()), f"kernel output finite at B={b} N={n}")
         check(err <= KERNEL_TOL_ABS, f"max|kernel-plain| {err:.3e} <= {KERNEL_TOL_ABS} at B={b} N={n}")
         check(rel <= KERNEL_TOL_REL, f"relative {rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n}")
+        check(raw_rel <= KERNEL_TOL_REL,
+              f"un-normalised relative {raw_rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n}")
         max_err = max(max_err, err)
         ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
             lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2),
@@ -222,12 +226,13 @@ def phase_forward(histogram_cuda, dev):
         del iy_ku, kv
         chunk, n_chunks = histogram_cuda.split_pixels(
             b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        row = {"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "ms": ms, "device_ms": dev_ms,
+        row = {"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "raw_rel_err": raw_rel,
+               "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                **bound_row(histogram_cuda, "histogram_fwd", b, n, dev_ms),
                "chunks": n_chunks, "chunk": chunk}
         rows.append(row)
-        print(f"kernel: B={b} N={n} max|d|={err:.3e} rel={rel:.3e} "
+        print(f"kernel: B={b} N={n} max|d|={err:.3e} rel={rel:.3e} un-normalised rel={raw_rel:.3e} "
               f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms "
               f"({n_chunks} chunks of {chunk} px); device {dev_ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share {row['share']:.3f}, "
@@ -668,13 +673,15 @@ def main(argv=None) -> int:
          "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
          "launches": counts["histogram_fwd"],
          "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"]},
-         "max_abs_err": fwd_err, **main_row(fwd_rows), "shapes": fwd_rows},
+         "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
+         "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
          "source": "histogan_tpu_torch/csrc/histogram_bwd.cu",
          "replaces": "histogan_tpu/ops/histogram_pallas.py:64",
          "launches": counts["histogram_bwd"],
          "launches_by_path": {"training": counts["histogram_bwd"]},
-         "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma, "shapes": bwd_rows},
+         "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
+         "shapes": bwd_rows},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

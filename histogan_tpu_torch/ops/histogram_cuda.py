@@ -38,9 +38,9 @@ from torch.autograd.function import once_differentiable
 
 EPS = 1e-6
 H_BINS = 64
-TILE = 64  # pixels per shared-memory tile in the kernel; chunks are multiples of it
+TILE = 64  # pixels per shared-memory tile in K1; chunks are multiples of it
 MIN_CHUNK = 256  # fewest pixels a block takes before the split stops
-BLOCKS_PER_SM = 2
+BLOCKS_PER_SM = 2  # K1's blocks resident on one SM (registers and shared memory)
 REFERENCE_TILE = 512  # pixels per tile of the plain version, as on the TPU
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -172,12 +172,13 @@ def bound_ms(work: Dict[str, int]) -> Tuple[float, str]:
 
 
 def split_pixels(batch: int, n_pixels: int, num_sms: int) -> Tuple[int, int]:
-    """(chunk, n_chunks): how the kernel splits each image's pixels over
-    blocks. Enough chunks that the batch's 3 * batch * n_chunks blocks
-    fill ``BLOCKS_PER_SM`` blocks per SM, but no chunk under
-    ``MIN_CHUNK`` pixels. Chunks are whole tiles and cover the pixels
-    with no empty chunk."""
-    want = -(-BLOCKS_PER_SM * num_sms // (3 * batch))
+    """(chunk, n_chunks): how K1 splits each image's pixels over blocks.
+    As many chunks as let the batch's 3 * batch * n_chunks blocks run in
+    one wave of ``BLOCKS_PER_SM`` blocks per SM (a second, partial wave
+    would take as long as the first), but no chunk under ``MIN_CHUNK``
+    pixels. Chunks are whole tiles and cover the pixels with no empty
+    chunk."""
+    want = BLOCKS_PER_SM * num_sms // (3 * batch)
     most = -(-n_pixels // MIN_CHUNK)
     n_chunks = max(1, min(want, most))
     chunk = -(-n_pixels // n_chunks)
@@ -268,6 +269,11 @@ def _device_index(dev: torch.device) -> int:
     return dev.index if dev.index is not None else torch.cuda.current_device()
 
 
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _check_packed(packed: torch.Tensor) -> None:
     if packed.dtype != torch.float32:
         raise TypeError(f"packed must be float32, got {packed.dtype}")
@@ -275,6 +281,8 @@ def _check_packed(packed: torch.Tensor) -> None:
         raise ValueError(f"packed must be (B, N, 8), got {tuple(packed.shape)}")
     if not packed.is_contiguous():
         raise ValueError("packed must be contiguous")
+    if packed.data_ptr() % 16:
+        raise ValueError("packed must start on a 16-byte boundary (K1 copies 16 bytes at a time)")
     b, n, _ = packed.shape
     if not 1 <= b <= 65535 or n < 1:
         raise ValueError(f"packed shape {tuple(packed.shape)} is outside the kernel's range")
@@ -286,16 +294,15 @@ def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
     b, n, _ = packed.shape
     lib = _library("histogram_fwd")
     dev = packed.device
-    chunk, n_chunks = split_pixels(
-        b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
+    index = _device_index(dev)
+    chunk, n_chunks = split_pixels(b, n, _num_sms(index))
     out = torch.empty((b, 3, H_BINS, H_BINS), device=dev, dtype=torch.float32)
     partial = (torch.empty((b, 3, n_chunks, H_BINS, H_BINS), device=dev,
                            dtype=torch.float32)
                if n_chunks > 1 else out)
     err = lib.histogram_fwd(
         packed.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, chunk,
-        n_chunks, float(inv_sigma2), _device_index(dev),
-        torch.cuda.current_stream(dev).cuda_stream)
+        n_chunks, float(inv_sigma2), index, torch.cuda.current_stream(dev).cuda_stream)
     _check_launch(lib, "histogram_fwd", err)
     launches += 1
     return out

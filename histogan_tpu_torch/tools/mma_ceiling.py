@@ -1,18 +1,24 @@
-"""What bounds the histogram backward kernel (K2) on the card.
+"""What bounds the histogram kernels (K1 forward, K2 backward) on the card.
 
     python -m histogan_tpu_torch.tools.mma_ceiling
 
-Needs a CUDA card and nvcc. K2 runs its products as mma.sync m16n8k8
-TF32 (HMMA.1688 in SASS), 24 of them per k-step of a 16-pixel tile
-between its elementwise work. This measures, on one block of 4, 8 or 12
-warps per SM, the rate of that instruction alone (8 independent
-accumulators, the three split terms in turn, as in K2) and beside the
-other instructions K2 issues: one LDS.128 per three HMMA, one or three
+Needs a CUDA card and nvcc. Both kernels run their products as mma.sync
+m16n8k8 TF32 (HMMA.1688 in SASS), 24 of them at a time over 8
+independent accumulators (the three split terms in turn), between their
+elementwise work. This measures, on one block of 4, 8 or 12 warps per
+SM, the rate of that instruction alone and beside the other
+instructions the kernels issue: one LDS.128 per three HMMA, one or three
 FFMA per HMMA, one MUFU.RCP per three HMMA. It prints TFLOP/s (TF32,
 2048 FLOP an HMMA) and the time per HMMA on one SMSP, in ns and in
-cycles at the card's maximum SM clock. Then it counts K2's instructions
-in its per-plane loop by opcode (cuobjdump -sass): the instructions
-that the time of one plane is made of.
+cycles at the card's maximum SM clock. Then it counts by opcode
+(cuobjdump -sass) the instructions of each kernel's hot loop, the loop
+with the most HMMA: K2's per-plane loop and K1's per-tile loop (two
+k-steps of 96 HMMA each, and a third copy of the k-step that starts an
+accumulator run), the instructions that their time is made of. Last it
+runs K1 back to back for about a second at two shapes, reads the SM
+clock (nvidia-smi) meanwhile, and prints the cycles one SMSP spends per
+k-step: the call's time (CUDA events, K1's two kernels and the host
+work between calls) over the k-steps of the SMSP with the most.
 """
 
 from __future__ import annotations
@@ -153,20 +159,24 @@ def _build():
 
 def plane_loop_opcodes(sass: str) -> collections.Counter:
     """Opcodes of the loop (a backward branch) with the most HMMA in
-    ``sass`` (cuobjdump -sass text)."""
-    ins = []
+    ``sass`` (cuobjdump -sass text). Addresses start again at 0 in each
+    function, so each function's loops are taken in that function."""
+    functions = [[]]
     for line in sass.splitlines():
+        if "Function :" in line:
+            functions.append([])
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)(.*)", line)
         if m:
-            ins.append((int(m.group(1), 16), m.group(2).split(".")[0], m.group(3)))
+            functions[-1].append((int(m.group(1), 16), m.group(2).split(".")[0], m.group(3)))
     best = collections.Counter()
-    for addr, op, rest in ins:
-        target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
-        start = int(target.group(1), 16) if target else addr
-        if start < addr:
-            body = collections.Counter(o for a, o, _ in ins if start <= a <= addr)
-            if body["HMMA"] > best["HMMA"]:
-                best = body
+    for ins in functions:
+        for addr, op, rest in ins:
+            target = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            start = int(target.group(1), 16) if target else addr
+            if start < addr:
+                body = collections.Counter(o for a, o, _ in ins if start <= a <= addr)
+                if body["HMMA"] > best["HMMA"]:
+                    best = body
     return best
 
 
@@ -192,14 +202,66 @@ def main() -> int:
             print(f"mma_ceiling: {what:24s} {warps:2d} warps/SM: {ms:.4f} ms, "
                   f"{hmma * FLOP_PER_HMMA / ms / 1e9:.1f} TFLOP/s, {ns:.3f} ns = "
                   f"{ns * max_mhz / 1e3:.2f} cycles at {max_mhz:.0f} MHz per HMMA per SMSP")
-    lib = histogram_cuda.build(("histogram_bwd",))["histogram_bwd"]
+    libs = histogram_cuda.build()
     cuobjdump = Path(histogram_cuda._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True, text=True,
-                          check=True).stdout
-    ops = plane_loop_opcodes(sass)
-    print(f"mma_ceiling: K2's plane loop: {sum(ops.values())} instructions, "
-          + ", ".join(f"{op} {n}" for op, n in ops.most_common()))
+    for name, loop in (("histogram_bwd", "K2's plane loop"), ("histogram_fwd", "K1's tile loop")):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True,
+                              text=True, check=True).stdout
+        ops = plane_loop_opcodes(sass)
+        print(f"mma_ceiling: {loop}: {sum(ops.values())} instructions, "
+              + ", ".join(f"{op} {n}" for op, n in ops.most_common()))
+    for b, n in ((16, 64 * 64), (8, 250 * 250)):
+        k1_cycles(histogram_cuda, b, n, sms)
     return 0
+
+
+def k1_cycles(histogram_cuda, b: int, n: int, sms: int) -> None:
+    """K1's C entry point back to back at (b, n) for about a second, on
+    buffers allocated once (so that the host keeps ahead of the card): ms
+    per call (CUDA events), the SM clock that nvidia-smi samples every
+    100 ms meanwhile, and the cycles per k-step on the SMSP with the most
+    k-steps (one warp of each of its SM's resident blocks)."""
+    import torch
+
+    x = torch.rand((b, n, 3), device="cuda", generator=torch.Generator("cuda").manual_seed(n))
+    packed = histogram_cuda.pack_pixels(x).contiguous()
+    chunk, n_chunks = histogram_cuda.split_pixels(b, n, sms)
+    tiles = -(-chunk // histogram_cuda.TILE)
+    rounds = -(-3 * b * n_chunks // (histogram_cuda.BLOCKS_PER_SM * sms))
+    ksteps = rounds * histogram_cuda.BLOCKS_PER_SM * 2 * tiles  # 2 k-steps a warp a tile
+    out = torch.empty((b, 3, 64, 64), device="cuda")
+    partial = torch.empty((b, 3, n_chunks, 64, 64), device="cuda") if n_chunks > 1 else out
+    lib = histogram_cuda._library("histogram_fwd")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.histogram_fwd(packed.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n,
+                                chunk, n_chunks, 2500.0, 0, stream)
+        if err:
+            raise RuntimeError(f"histogram_fwd launch failed: CUDA error {err}")
+
+    call()
+    torch.cuda.synchronize()
+    reps = max(100, int(1.0 / (b * n * 73728 / 1.5e14)))  # ~1 s at 150 TFLOP/s of split TF32
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits",
+                            "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            call()
+        end.record()
+        end.synchronize()
+    finally:
+        smi.terminate()
+        samples, _ = smi.communicate()
+    mhz = sorted(float(v) for v in samples.split())
+    ms = start.elapsed_time(end) / reps
+    mid = mhz[len(mhz) // 2]
+    print(f"mma_ceiling: K1 at B={b} N={n}: {ms:.4f} ms a call over {reps} calls; SM clock "
+          f"{mhz[0]:.0f}/{mid:.0f}/{mhz[-1]:.0f} MHz (min/median/max of {len(mhz)} samples); "
+          f"{ksteps} k-steps on the busiest SMSP ({n_chunks} chunks of {tiles} tiles): "
+          f"{ms * mid * 1e3 / ksteps:.0f} cycles a k-step at the median clock")
 
 
 if __name__ == "__main__":

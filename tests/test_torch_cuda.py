@@ -38,8 +38,11 @@ def _normalise(h):
     return h / (h.sum(dim=(1, 2, 3), keepdim=True) + histogram_cuda.EPS)
 
 
-# ragged edges (1, 63, 65 pixels), one chunk and many, and the main path's shapes
-@pytest.mark.parametrize("b,n", [(1, 1), (1, 63), (1, 65), (3, 1000), (2, 4096),
+# ragged edges (1, 7, 9, 63, 65 pixels: not whole k-steps of 8 or tiles of
+# 64; 150² + 5: not whole chunks), one chunk and many, the longest chunk at
+# B = 1 (250²), and the main path's shapes
+@pytest.mark.parametrize("b,n", [(1, 1), (1, 7), (1, 9), (1, 63), (1, 65), (3, 1000),
+                                 (2, 4096), (2, 150 * 150 + 5), (1, 250 * 250),
                                  (1, 150 * 150), (16, 64 * 64), (8, 250 * 250)])
 def test_kernel_matches_plain(dev, b, n):
     packed = _packed(b, n, seed=b * 100003 + n, dev=dev)
@@ -168,6 +171,10 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         histogram_cuda.hist_core(packed[:, ::2], INV_SIGMA2)
     with pytest.raises(ValueError):
         histogram_cuda.hist_core(packed[..., :7].contiguous(), INV_SIGMA2)
+    misaligned = torch.empty(100 * 8 + 1, device=dev)[1:].view(1, 100, 8)  # 4 bytes off
+    misaligned.copy_(packed)
+    with pytest.raises(ValueError):  # contiguous, but K1 copies 16 bytes at a time
+        histogram_cuda.hist_core(misaligned, INV_SIGMA2)
     g = _g(1, seed=7, dev=dev)
     with pytest.raises(TypeError):
         histogram_cuda._launch_bwd(packed, g.double(), INV_SIGMA2)

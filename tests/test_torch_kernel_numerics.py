@@ -1,28 +1,37 @@
-"""The arithmetic of the histogram backward kernel (K2,
-``histogan_tpu_torch/csrc/histogram_bwd.cu``), emulated on the CPU.
+"""The arithmetic of the histogram kernels, K1 (forward,
+``histogan_tpu_torch/csrc/histogram_fwd.cu``) and K2 (backward,
+``csrc/histogram_bwd.cu``), emulated on the CPU.
 
-K2 runs its two products per plane, kv . g^T and ku . g, on the tensor
-cores in split TF32: each operand x becomes hi + lo, both TF32 (10
-mantissa bits), and a . b is taken as lo.hi + hi.lo + hi.hi with an fp32
-sum. Here the same split, written with integer operations on the fp32
-bits, feeds fp32 matmuls, and the result is held against the plain
-version ``hist_core_bwd_reference`` with the kernel's gate: 1e-5 of
-max|plain| on every column. The split is rounded two ways: to nearest
-with ties away from zero, as ``cvt.rna.tf32.f32`` rounds (add 0x1000 to
-the bits, then clear the low 13), and by truncation, as the kernel does it
-(it hands x over as hi, and the tensor core reads only the top 19 bits).
-One-pass TF32 (hi.hi alone) must miss the gate: that is why the split is
+Both run their products on the tensor cores in split TF32: each operand x
+becomes hi + lo, both TF32 (10 mantissa bits), and a . b is taken as
+lo.hi + hi.lo + hi.hi with an fp32 sum. K1's product per plane is
+(iy ku)^T . kv over the pixels, K2's are kv . g^T and ku . g. Here the
+same split, written with integer operations on the fp32 bits, feeds fp32
+matmuls, and the result is held against the plain versions
+``hist_core_reference`` and ``hist_core_bwd_reference`` with the kernels'
+gates: for K1 1e-6 absolute and 1e-5 of max|plain| on the normalised
+histogram and 1e-5 of max|plain| un-normalised, for K2 1e-5 of max|plain|
+on every column. The split is rounded two ways: to nearest with ties away
+from zero, as ``cvt.rna.tf32.f32`` rounds (add 0x1000 to the bits, then
+clear the low 13), and by truncation, as the kernels do it (they hand x
+over as hi, and the tensor core reads only the top 19 bits). One-pass
+TF32 (hi.hi alone) must miss the relative gate: that is why the split is
 there. Also the work and bound counts that ``chip_smoke.py`` prints.
 """
 
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from histogan_tpu_torch.ops import histogram_cuda
 
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
-GATE = 1e-5  # chip_smoke.py's KERNEL_TOL_REL, per column
+GATE = 1e-5  # chip_smoke.py's KERNEL_TOL_REL: K2 per column, K1 relative
+GATE_ABS = 1e-6  # chip_smoke.py's KERNEL_TOL_ABS: K1, normalised histogram
+# Pixels of one accumulator run of K1: a warp's 16 k-steps of 8 pixels,
+# whose sum is then added in fp32 into its running sum.
+FWD_RUN = 128
 
 
 @pytest.fixture(autouse=True)
@@ -115,6 +124,53 @@ def test_one_pass_tf32_misses_the_kernel_gate(b, n, rounding):
     got = bwd_emulated(packed, g, lambda x, y: one_pass_matmul(x, y, rounding))
     errs = _column_errors(got, want)
     assert max(errs) > 10 * GATE, errs
+
+
+def fwd_emulated(packed, matmul):
+    """K1's product with ``matmul``: per plane (iy ku)^T . kv over runs
+    of FWD_RUN pixels (the ragged edge padded with zeros: iy = 0), the
+    runs' products summed in fp32."""
+    b, n, _ = packed.shape
+    runs = F.pad(packed, (0, 0, 0, (-n) % FWD_RUN)).reshape(b, -1, FWD_RUN, 8)
+    centers = histogram_cuda._centers()
+    iy = runs[..., 6:7]
+    planes = []
+    for c in range(3):
+        ku = 1.0 / (1.0 + torch.square(runs[..., 2 * c : 2 * c + 1] - centers) * INV_SIGMA2)
+        kv = 1.0 / (1.0 + torch.square(runs[..., 2 * c + 1 : 2 * c + 2] - centers) * INV_SIGMA2)
+        planes.append(matmul((iy * ku).transpose(-1, -2), kv).sum(dim=1))
+    return torch.stack(planes, dim=1)
+
+
+def _fwd_errors(got, want):
+    """(max|got - want|, that over max|want|) of the normalised
+    histograms, and max|got - want| over max|want| un-normalised."""
+    g, w = (h / (h.sum(dim=(1, 2, 3), keepdim=True) + histogram_cuda.EPS) for h in (got, want))
+    err = (g - w).abs().max().item()
+    return err, err / w.abs().max().item(), ((got - want).abs().max() / want.abs().max()).item()
+
+
+FWD_SHAPES = [(2, 4097), (1, 17), (1, 150 * 150)]
+
+
+@pytest.mark.parametrize("rounding", ["rna", "trunc"])
+@pytest.mark.parametrize("b,n", FWD_SHAPES)
+def test_forward_split_tf32_is_within_the_kernel_gate(b, n, rounding):
+    packed, _ = _inputs(b, n, seed=b * 11 + n)
+    want = histogram_cuda.hist_core_reference(packed, INV_SIGMA2)
+    got = fwd_emulated(packed, lambda x, y: split_matmul(x, y, rounding))
+    err, rel, raw_rel = _fwd_errors(got, want)
+    assert err <= GATE_ABS and rel <= GATE and raw_rel <= GATE, (err, rel, raw_rel)
+
+
+@pytest.mark.parametrize("rounding", ["rna", "trunc"])
+@pytest.mark.parametrize("b,n", FWD_SHAPES)
+def test_forward_one_pass_tf32_misses_the_kernel_gate(b, n, rounding):
+    packed, _ = _inputs(b, n, seed=b * 11 + n)
+    want = histogram_cuda.hist_core_reference(packed, INV_SIGMA2)
+    got = fwd_emulated(packed, lambda x, y: one_pass_matmul(x, y, rounding))
+    _, rel, _ = _fwd_errors(got, want)
+    assert rel > GATE, rel
 
 
 # Hand-checked at the training loss's shape, 16 images of 64 x 64 pixels:
