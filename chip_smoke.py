@@ -28,9 +28,16 @@ Phases, each printing its lines:
   8. train: Trainer.set_data_src on 64 written images and Trainer.train
      for steps 0-9 at 256 px, capacity 16, latent 512, style depth 8,
      batch 16, fp32; then save, load into a new Trainer and one more step;
+  8b. the same in bf16 (precision, opt_state_dtype and ema_dtype 'bf16'),
+     with one more step on the EMA schedule, whose stochastically rounded
+     EMA is held to the exact fp32 EMA; the dtypes of the weights, the EMA
+     and the optimizer state are checked before and after the resume;
   9. card vs CPU: one step-0 train step (GP and PL) at full width and
      batch 2 on both devices from the same weights, batch and draws; then
-     the same step without the gradient penalty.
+     the same step without the gradient penalty;
+  9b. the step-0 step (GP and PL) under precision='bf16' against fp32 on
+     the card at full width and batch 2, and against bf16 on the CPU at
+     BF16_CPU_SIZE px (bf16 on the CPU costs several times fp32).
 Then one JSON line with the kernels, and last the result line. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -79,6 +86,22 @@ STEP_GRAD_RTOL = 5e-2
 # entries must be settled, so that the gate covers the bulk of them.
 STEP_PARAM_CLOSE = 1e-6
 STEP_SETTLED_MIN = 0.5
+# Phase 9b: the step-0 step under bf16 on the card against fp32 on the
+# card and against bf16 on the CPU. bf16 rounds G's images and D's
+# activations to 8 bits, and any other order of summation rounds them
+# elsewhere, so the losses move by percents, not by fp32 rounding: each
+# loss relative (d_loss and g_loss, means of D's logits, relative to the
+# larger of the two, since either may sit near 0), the gradients by their
+# cosine per tensor. Measured on the card (NVIDIA H100 80GB HBM3, 700 W),
+# against fp32 / against the CPU: d_loss 4.5e-3 / 8.4e-3, g_loss 3.7e-2 /
+# 4.8e-2, gp_loss 6.4e-3 / 3.6e-3, h_loss 6.1e-4 / 1.1e-3, pl_mean
+# 9.9e-4 / 2.8e-3; worst tensor's cosine 0.9715 / 0.9802. The gates allow
+# about 2.5 times the larger loss error and 3.5 times the worst 1 - cosine.
+BF16_LOSS_RTOL = {"d_loss": 2.5e-2, "g_loss": 1.2e-1, "gp_loss": 2e-2, "h_loss": 3e-3,
+                  "pl_mean": 1e-2}
+BF16_GRAD_COS = 0.9
+BF16_CPU_SIZE = 64
+BF16 = dict(precision="bf16", opt_state_dtype="bf16", ema_dtype="bf16")
 SHAPES = [(1, 150 * 150), (16, 64 * 64), (8, 250 * 250)]  # (B, N) of packed, K1
 BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097)]  # (B, N) of packed, K2
 MAIN_SHAPE = (16, 64 * 64)  # both kernels on the training path: the loss's histograms
@@ -393,13 +416,56 @@ def write_images(folder: Path, n: int = 64) -> None:
                                                                   quality=95)
 
 
-def phase_train(histogram_cuda, smi, profile: Optional[Path]):
+def check_dtypes(t, policy: dict) -> None:
+    """fp32 masters; the EMA and DiffGrad's state in the policy's dtypes."""
+    ema = torch.bfloat16 if policy.get("ema_dtype") == "bf16" else torch.float32
+    opt = torch.bfloat16 if policy.get("opt_state_dtype") == "bf16" else torch.float32
+    s = t.state
+    check(all(p.dtype == torch.float32 for k in ("S", "H", "G", "D")
+              for p in getattr(s, k).parameters()), "fp32 master weights")
+    check(all(p.dtype == ema for k in ("SE", "HE", "GE") for p in getattr(s, k).parameters()),
+          f"EMA in {ema}")
+    states = [st for o in (s.opt_g, s.opt_d) for st in o.state.values()]
+    check(bool(states) and all(st[k].dtype == opt for st in states
+                               for k in ("exp_avg", "exp_avg_sq", "previous_grad")),
+          f"optimizer state in {opt}")
+
+
+def check_ema_step(t, tag: str) -> None:
+    """One step on the EMA schedule (steps > 20000, every 10th; no GP, PL,
+    save, evaluation or reset there): every stored EMA entry is the exact
+    fp32 EMA or, in bf16, one of its two bf16 neighbours."""
+    ema = [p for k in ("SE", "HE", "GE") for p in getattr(t.state, k).parameters()]
+    pre = [e.float() for e in ema]
+    t.steps = 20010
+    m = t.train()
+    check(all(math.isfinite(v) for v in m.values()), f"finite losses on the EMA step: {m}")
+    tol = 2.0 ** -7 if ema[0].dtype == torch.bfloat16 else 1e-6
+    worst, moved = 0.0, 0
+    for e0, p, e in zip(pre, t.state.g_params(), ema):
+        want = e0 * 0.995 + 0.005 * p.detach()
+        worst = max(worst, ((e.float() - want).abs() / (want.abs() + 1e-30)).max().item())
+        check(bool(((e.float() - want).abs() <= want.abs() * tol + 1e-6).all()),
+              f"EMA within {tol} of the exact fp32 EMA")
+        moved += int(not torch.equal(e.float(), e0))
+    check(moved > 0, "the EMA moved")
+    print(f"{tag}: EMA step (steps=20010): {moved} of {len(ema)} EMA tensors moved, worst "
+          f"relative distance to the exact fp32 EMA {worst:.3e} (bound {tol:.3e}), "
+          f"stored {ema[0].dtype}")
+
+
+def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[dict] = None,
+                fp32_rate: Optional[float] = None):
+    """Phase 8 (fp32) or, with ``policy`` (BF16), phase 8b."""
     from histogan_tpu_torch.train.trainer import Trainer
 
-    work = WORK / "train"
+    policy = policy or {}
+    label = policy.get("precision", "fp32")
+    tag = "train" if label == "fp32" else f"train {label}"
+    work = WORK / f"train_{label}"
     write_images(work / "data")
     cfg = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1, hist_resizing="sampling",
-               seed=0, save_every=1000)
+               seed=0, save_every=1000, **policy)
     t = Trainer("train", work / "results", work / "models", device=CARD, **cfg)
     t.init_GAN()
     before = {k: v.detach().clone() for k, v in t.reference_state_dict().items()}
@@ -421,28 +487,32 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path]):
         flags = [name for name, on in (("GP", step % 4 == 0), ("PL", step % 32 == 0),
                                        ("EMA reset", step % 1000 == 2),
                                        ("save+evaluate", step == 0)) if on]
-        print(f"train: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
+        print(f"{tag}: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
     counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
     check(counts["histogram_fwd"] >= 1 and counts["histogram_bwd"] >= 1,
-          f"K1 and K2 launched on the training path {counts}")
+          f"K1 and K2 launched on the {label} training path {counts}")
     after = t.reference_state_dict()
     for prefix in ("S", "H", "G", "D"):
         keys = [k for k in after if k.split(".")[0] == prefix]
         check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
     del before
+    check_dtypes(t, policy)
     rate = 3 * cfg["batch_size"] / (sum(step_ms[5:8]) / 1e3)
-    print(f"train: pool of 64 images in {pool_s:.2f} s; steps 5-7 (plain) "
+    versus = "" if fp32_rate is None else f" against {fp32_rate:.2f} imgs/s fp32 in phase 8"
+    print(f"{tag}: pool of 64 images in {pool_s:.2f} s; steps 5-7 (plain) "
           f"{step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} imgs/s "
-          f"(batch 16, fp32); peak {peak} bytes; launches {counts} on {smi}")
-    print(f"train: K1 launches {pool_launches} in the pool build, "
+          f"(batch 16, {label}){versus}; peak {peak} bytes; launches {counts} on {smi}")
+    print(f"{tag}: K1 launches {pool_launches} in the pool build, "
           f"{counts['histogram_fwd'] - pool_launches} in the 10 steps; K2 launches "
           f"{counts['histogram_bwd']} in the 10 steps")
+    if policy:
+        check_ema_step(t, tag)
 
     if profile is not None:
-        profile_steps(t, profile)
+        profile_steps(t, profile, "" if label == "fp32" else f"{label}_")
 
     # save, load into a new Trainer, one more step
     t.save(1)
@@ -455,22 +525,24 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path]):
     check(r.state.step == opt_steps and r.steps == cfg["save_every"],
           f"step counters carried over ({r.state.step}, {r.steps})")
     check(r.state.pl_mean.item() == pl_mean, f"pl_mean carried over ({r.state.pl_mean.item()})")
+    check_dtypes(r, policy)
     r.set_data_src(str(work / "data"))
     m = r.train()
     r.close()
     check(all(math.isfinite(v) for v in m.values()) and r.state.step == opt_steps + 1,
           "one finite step after the resume")
-    print(f"train: saved at step {opt_steps}, loaded (pl_mean {pl_mean:.6f}), one more step: "
+    check_dtypes(r, policy)
+    print(f"{tag}: saved at step {opt_steps}, loaded (pl_mean {pl_mean:.6f}), one more step: "
           + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
     del r
     torch.cuda.empty_cache()
     return counts, rate, peak
 
 
-def profile_steps(t, out: Path) -> None:
+def profile_steps(t, out: Path, prefix: str = "") -> None:
     """Times and a torch.profiler view of the flagship step by its flags:
     plain, GP (every 4th), GP+PL (step 0 of every 32); the operator tables
-    go to ``out``."""
+    go to ``out``, their names led by ``prefix``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -493,14 +565,14 @@ def profile_steps(t, out: Path) -> None:
             step(gp, pl)
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        print(f"profile: {name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
+        print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             step(gp, pl)
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = prof.key_averages()
-        (out / f"profile_{name.replace('+', '_')}.txt").write_text(
+        (out / f"profile_{prefix}{name.replace('+', '_')}.txt").write_text(
             events.table(sort_by="self_device_time_total", row_limit=40))
         # device-side events only (kernels, copies): the operators' rows and
         # the device copies of host annotations carry the same time again
@@ -510,7 +582,7 @@ def profile_steps(t, out: Path) -> None:
         device_us = sum(e.self_device_time_total for e in kernels)
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
         hist = [e for e in kernels if "hist_" in e.key]  # K1's two kernels and K2
-        print(f"profile: {name} wall {wall_us / 1e3:.2f} ms, device kernels "
+        print(f"profile: {prefix}{name} wall {wall_us / 1e3:.2f} ms, device kernels "
               f"{device_us / 1e3:.2f} ms, busy share {device_us / wall_us:.3f}")
         for e in top + hist:
             print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}")
@@ -522,10 +594,41 @@ def diffgrad_first_move(g: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(g.abs()) * g / (g.abs() + 1e-8 / math.sqrt(1.0 - 0.9))
 
 
+def to_device(d, x):
+    """``x`` (a tensor, or dicts, lists and dataclasses of them) on ``d``."""
+    if torch.is_tensor(x):
+        return x.to(d)
+    if isinstance(x, dict):
+        return {k: to_device(d, v) for k, v in x.items()}
+    if isinstance(x, list):
+        return [to_device(d, v) for v in x]
+    if dataclasses.is_dataclass(x):
+        return type(x)(**{f.name: to_device(d, getattr(x, f.name)) for f in dataclasses.fields(x)})
+    return x
+
+
+def applied_grads(t) -> dict:
+    """{reference name: (parameter, the gradient its optimizer last applied)}."""
+    return {f"{p}.{n}": (w, (t.state.opt_d if p == "D" else t.state.opt_g).state[w]["previous_grad"])
+            for p in ("S", "H", "G", "D") for n, w in getattr(t.state, p).named_parameters()}
+
+
+def step_batch(size: int, cfg):
+    """The step-0 batch (batch 2) and draws of phases 9 and 9b."""
+    from histogan_tpu_torch.train.steps import draw_step
+
+    rng = np.random.default_rng(7)
+    hists = rng.random((3, 1, 2, 3, 64, 64), dtype=np.float32)
+    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
+    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3), dtype=np.uint8)),
+             "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
+    return batch, draw_step(torch.Generator().manual_seed(8), cfg, "cpu", apply_pl=True)
+
+
 def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
     """One train step with the given flags at full width and batch 2 on the
     card and on the CPU, from the same weights, batch and draws."""
-    from histogan_tpu_torch.train.steps import draw_step, train_step
+    from histogan_tpu_torch.train.steps import train_step
     from histogan_tpu_torch.train.trainer import Trainer
 
     work = WORK / "card_vs_cpu"
@@ -539,35 +642,14 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
     check(all(torch.equal(start[k].cpu(), v) for k, v in tr["cpu"].reference_state_dict().items()),
           "same weights on both")
     del start
-    rng = np.random.default_rng(7)
-    hists = rng.random((3, 1, 2, 3, 64, 64), dtype=np.float32)
-    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
     size = cfg["image_size"]
-    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3), dtype=np.uint8)),
-             "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
-    draws = draw_step(torch.Generator().manual_seed(8), tr["cpu"].cfg, "cpu", apply_pl=True)
-
-    def to(d, x):
-        if torch.is_tensor(x):
-            return x.to(d)
-        if isinstance(x, dict):
-            return {k: to(d, v) for k, v in x.items()}
-        if isinstance(x, list):
-            return [to(d, v) for v in x]
-        if dataclasses.is_dataclass(x):
-            return type(x)(**{f.name: to(d, getattr(x, f.name)) for f in dataclasses.fields(x)})
-        return x
-
-    def live(t):  # {reference name: (parameter, the gradient its optimizer applied)}
-        return {f"{p}.{n}": (w, (t.state.opt_d if p == "D" else t.state.opt_g).state[w]["previous_grad"])
-                for p in ("S", "H", "G", "D") for n, w in getattr(t.state, p).named_parameters()}
-
+    batch, draws = step_batch(size, tr["cpu"].cfg)
     before = {f"{p}.{n}": w.detach().clone() for p in ("S", "H", "G", "D")
               for n, w in getattr(tr["cpu"].state, p).named_parameters()}
     metrics, secs = {}, {}
     for name, t in tr.items():
         t0 = time.perf_counter()
-        m = train_step(t.state, to(t.device, batch), to(t.device, draws), t.cfg,
+        m = train_step(t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
                        apply_gp=apply_gp, apply_pl=apply_pl)
         metrics[name] = {k: v.item() for k, v in m.items()}
         secs[name] = time.perf_counter() - t0
@@ -578,8 +660,8 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
 
     r = dict(grad_rel=0.0, grad_worst="", worst=0.0, off=0, total=0, settled=0, bad=0,
              flipped=0, flipped_rel=0.0, moved=0)
-    card = live(tr["card"])
-    for k, (w_cpu, g_cpu) in live(tr["cpu"]).items():
+    card = applied_grads(tr["card"])
+    for k, (w_cpu, g_cpu) in applied_grads(tr["cpu"]).items():
         w_card, g_card = (x.detach().cpu() for x in card[k])
         w_cpu = w_cpu.detach()
         gap = (g_card - g_cpu).abs().max().item()
@@ -631,6 +713,71 @@ def phase_card_vs_cpu() -> None:
     card_vs_cpu_step(apply_gp=False, apply_pl=True)
 
 
+def bf16_step_run(device: str, precision: str, size: int):
+    """The step-0 step (GP and PL) at capacity 16, latent 512, style depth
+    8, batch 2, ``size`` px, from seed 3's weights and phase 9's batch and
+    draws. The optimizer's state is fp32, so it keeps the gradients as
+    they were applied. Returns (metrics, {name: gradient on the CPU}, s)."""
+    from histogan_tpu_torch.train.steps import train_step
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    work = WORK / "bf16_step" / f"{device}_{precision}_{size}"
+    cfg = dict(FLAGSHIP, image_size=size, batch_size=2, gradient_accumulate_every=1,
+               hist_resizing="sampling", seed=3, precision=precision)
+    t = Trainer("cmp", work / "r", work / "m", device=device, **cfg)
+    t.init_GAN()
+    batch, draws = step_batch(size, t.cfg)
+    t0 = time.perf_counter()
+    m = train_step(t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
+                   apply_gp=True, apply_pl=True)
+    metrics = {k: v.item() for k, v in m.items()}
+    secs = time.perf_counter() - t0
+    grads = {k: g.detach().float().cpu() for k, (_, g) in applied_grads(t).items()}
+    t.close()
+    return metrics, grads, secs
+
+
+def compare_bf16_step(got, want, against: str, size: int) -> None:
+    """Phase 9b's gates: card bf16 (``got``) against ``want``."""
+    (m, g, s), (mw, gw, sw) = got, want
+    logit_scale = max(abs(mw["d_loss"]), abs(mw["g_loss"]), 1.0)
+    err = {k: abs(m[k] - mw[k]) / (logit_scale if k in ("d_loss", "g_loss") else abs(mw[k]))
+           for k in BF16_LOSS_RTOL}
+    cos = {}
+    for k, a in g.items():
+        a, b = a.double(), gw[k].double()
+        na, nb = a.norm().item(), b.norm().item()
+        cos[k] = 1.0 if na == nb == 0.0 else (a * b).sum().item() / max(na * nb, 1e-300)
+    worst = sorted(cos, key=cos.get)[:5]
+    flat = torch.nn.functional.cosine_similarity(
+        torch.cat([g[k].flatten() for k in g]).double(),
+        torch.cat([gw[k].flatten() for k in g]).double(), dim=0).item()
+    print(f"bf16 step: {size} px batch 2, card bf16 against {against}: "
+          + " ".join(f"{k} {m[k]:.6f}/{mw[k]:.6f} ({err[k]:.3e}, gate {BF16_LOSS_RTOL[k]})"
+                     for k in err)
+          + f"; gradient cosine, all tensors {flat:.6f}, median tensor "
+          + f"{float(np.median(list(cos.values()))):.6f}, worst tensors "
+          + ", ".join(f"{k} {cos[k]:.6f}" for k in worst)
+          + f" (gate {BF16_GRAD_COS}); {s:.2f} s against {sw:.2f} s")
+    for k, e in err.items():
+        check(math.isfinite(m[k]) and e <= BF16_LOSS_RTOL[k],
+              f"bf16 against {against}: {k} {m[k]:.6f} vs {mw[k]:.6f}")
+    check(all(c >= BF16_GRAD_COS for c in cos.values()),
+          f"bf16 against {against}: every tensor's gradient cosine >= {BF16_GRAD_COS}")
+
+
+def phase_bf16_step() -> None:
+    """9b: bf16 on the card against fp32 on the card at full width, and
+    against bf16 on the CPU at BF16_CPU_SIZE px."""
+    size = FLAGSHIP["image_size"]
+    card = bf16_step_run(CARD, "bf16", size)
+    compare_bf16_step(card, bf16_step_run(CARD, "fp32", size), "card fp32", size)
+    del card
+    torch.cuda.empty_cache()
+    compare_bf16_step(bf16_step_run(CARD, "bf16", BF16_CPU_SIZE),
+                      bf16_step_run("cpu", "bf16", BF16_CPU_SIZE), "cpu bf16", BF16_CPU_SIZE)
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -653,13 +800,21 @@ def main(argv=None) -> int:
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     shutil.rmtree(WORK, ignore_errors=True)
 
-    hmma = phase_build(histogram_cuda)                                 # 2
-    fwd_err, fwd_rows = phase_forward(histogram_cuda, dev)             # 3
-    sampling_launches = phase_sampling(histogram_cuda, dev, smi)       # 4, 5
-    bwd_err, bwd_rows = phase_backward(histogram_cuda, dev)            # 6
-    phase_loss_gradient(dev)                                           # 7
-    counts, _, _ = phase_train(histogram_cuda, smi, profile)           # 8
-    phase_card_vs_cpu()                                                # 9
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        print(f"seconds: phase {phase} {time.perf_counter() - t0:.2f}")
+        return out
+
+    hmma = timed("2", phase_build, histogram_cuda)
+    fwd_err, fwd_rows = timed("3", phase_forward, histogram_cuda, dev)
+    sampling_launches = timed("4-5", phase_sampling, histogram_cuda, dev, smi)
+    bwd_err, bwd_rows = timed("6", phase_backward, histogram_cuda, dev)
+    timed("7", phase_loss_gradient, dev)
+    counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
+    counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
+    timed("9", phase_card_vs_cpu)
+    timed("9b", phase_bf16_step)
     shutil.rmtree(WORK, ignore_errors=True)
 
     def main_row(rows):  # the training path's shape
@@ -672,14 +827,16 @@ def main(argv=None) -> int:
          "source": "histogan_tpu_torch/csrc/histogram_fwd.cu",
          "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
          "launches": counts["histogram_fwd"],
-         "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"]},
+         "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"],
+                              "training_bf16": counts_bf16["histogram_fwd"]},
          "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
          "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
          "source": "histogan_tpu_torch/csrc/histogram_bwd.cu",
          "replaces": "histogan_tpu/ops/histogram_pallas.py:64",
          "launches": counts["histogram_bwd"],
-         "launches_by_path": {"training": counts["histogram_bwd"]},
+         "launches_by_path": {"training": counts["histogram_bwd"],
+                              "training_bf16": counts_bf16["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
          "shapes": bwd_rows},
     ]}))

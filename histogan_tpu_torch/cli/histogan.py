@@ -120,6 +120,8 @@ def train_from_folder(
                  if skipped else ""))
 
     if export_pt is not None:
+        if load_pt is None and model.store.latest() is None:
+            print(f"no --load_pt and no checkpoint: exporting weights drawn with seed {seed}")
         count = model.export_pt(export_pt)
         print(f"exported reference-layout checkpoint to {export_pt} ({count} tensors)")
         return
@@ -241,10 +243,19 @@ def get_args(argv=None):
     add("--target_latent_file", dest="target_l", default=None)
     add("--num_image_tiles", type=int, default=16)
     add("--trunc_psi", type=float, default=0.75)
-    add("--fp16", type=str2bool, default=False)
-    add("--precision", choices=("fp32", "bf16"), default=None)
-    add("--opt_state_dtype", default=None, choices=("fp32", "bf16"))
-    add("--ema_dtype", default=None, choices=("fp32", "bf16"))
+    add("--fp16", type=str2bool, default=False,
+        help="Reference flag; True means --precision bf16 (there is no fp16 path).")
+    add("--precision", choices=("fp32", "bf16"), default=None,
+        help="Training compute dtype (default fp32): bf16 runs S, H, G and D in "
+             "bf16 on fp32 master weights, with fp32 losses and histograms. "
+             "Sampling is fp32 at either.")
+    add("--opt_state_dtype", default=None, choices=("fp32", "bf16"),
+        help="Storage dtype of DiffGrad's moments and previous gradient "
+             "(default fp32); their update math is fp32.")
+    add("--ema_dtype", default=None, choices=("fp32", "bf16"),
+        help="Storage dtype of the EMA weights (default fp32); bf16 updates "
+             "them in fp32 and stores them by stochastic rounding, and "
+             "widens them to fp32 to sample and to export.")
     add("--remat", type=str2bool, default=False)
     add("--calculate_fid_every", type=int, default=None)
     add("--fq_layers", nargs="*", type=int, default=[])

@@ -3,16 +3,23 @@
 JAX keeps the state as an immutable pytree that each step returns anew;
 here it is the modules and optimizers themselves, which a step updates in
 place (no second copy of the weights, the EMA or the optimizer moments).
+
+With ``ema_dtype='bf16'`` the EMA modules SE/HE/GE hold bf16 parameters:
+a reset is a round-to-nearest cast of the live weights, an update is
+computed in fp32 and stored by stochastic rounding (``ops/rounding.py``)
+with bits from ``ema_gen``, a generator that nothing else draws from, so
+the step's own draws do not depend on ``ema_dtype``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
+from histogan_tpu_torch.ops.rounding import stochastic_round_list
 from histogan_tpu_torch.optim.diffgrad import DiffGrad
 
 # modules by their reference state-dict prefix: live S/H/G/D, EMA SE/HE/GE
@@ -38,6 +45,7 @@ class HistoGANState:
     opt_d: DiffGrad
     pl_mean: torch.Tensor  # 0-d fp32 on the training device
     step: int = 0
+    ema_gen: Optional[torch.Generator] = None  # the bf16 EMA's rounding bits
 
     def modules(self) -> Dict[str, nn.Module]:
         return {k: getattr(self, k) for k in (*LIVE, *EMA)}
@@ -51,20 +59,29 @@ class HistoGANState:
         return [(getattr(self, e), getattr(self, live)) for e, live in EMA.items()]
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights in the flat reference layout (``GAN.state_dict()``)."""
+        """The weights in the flat reference layout (``GAN.state_dict()``),
+        each in its stored dtype."""
         return {f"{prefix}.{k}": v for prefix, m in self.modules().items()
                 for k, v in m.state_dict().items()}
 
     @torch.no_grad()
     def reset_ema(self) -> None:
-        """reset_parameter_averaging (histoGAN/histoGAN.py:999-1000)."""
+        """reset_parameter_averaging (histoGAN/histoGAN.py:999-1000); into
+        a bf16 EMA a round-to-nearest cast."""
         for ema, live in self.ema_pairs():
             torch._foreach_copy_(list(ema.parameters()), list(live.parameters()))
 
     @torch.no_grad()
     def update_ema(self, beta: float = 0.995) -> None:
-        """EMA <- beta * EMA + (1 - beta) * live (histoGAN/histoGAN.py:996-998)."""
+        """EMA <- beta * EMA + (1 - beta) * live (histoGAN/histoGAN.py:996-998);
+        into a bf16 EMA computed in fp32 and stochastically rounded."""
         for ema, live in self.ema_pairs():
-            e = list(ema.parameters())
-            torch._foreach_mul_(e, beta)
-            torch._foreach_add_(e, list(live.parameters()), alpha=1.0 - beta)
+            e, p = list(ema.parameters()), list(live.parameters())
+            if e[0].dtype == torch.float32:
+                torch._foreach_mul_(e, beta)
+                torch._foreach_add_(e, p, alpha=1.0 - beta)
+                continue
+            e32 = [x.float() for x in e]
+            torch._foreach_mul_(e32, beta)
+            torch._foreach_add_(e32, p, alpha=1.0 - beta)
+            torch._foreach_copy_(e, stochastic_round_list(e32, self.ema_gen))

@@ -19,12 +19,22 @@ Differences of form from the JAX step, none of value:
   permuted to NHWC.
 - Gradients are taken with ``torch.autograd.grad`` over the phase's own
   parameters, so the G phase leaves no gradient on D.
+
+Under ``precision='bf16'`` the step follows the JAX package's policy
+(steps.py:88-186, 246-314): each phase casts the fp32 master parameters
+to bf16 copies once (``cast_models``; the casts are differentiable, so
+fp32 gradients reach the masters) and S, H, G and D run on them with bf16
+inputs; D's logits, the losses, the histogram, the gradient penalty's
+image gradient and the path length's statistics are fp32. The draws stay
+fp32 and are cast where JAX draws or casts them. With fp32 the casts are
+no-ops and the modules run themselves.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -38,10 +48,51 @@ EPS = 1e-8  # histoGAN/histoGAN.py:53
 
 
 class Models(NamedTuple):
-    S: nn.Module
-    H: nn.Module
-    G: nn.Module
-    D: nn.Module
+    """The modules, or callables that run them on cast parameters."""
+
+    S: Callable
+    H: Callable
+    G: Callable
+    D: Callable
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    """The compute dtype of ``cfg.precision`` (steps.py:88-89)."""
+    return torch.bfloat16 if getattr(cfg, "precision", "fp32") == "bf16" else torch.float32
+
+
+def cast_module(module: nn.Module, dtype: torch.dtype) -> Callable:
+    """``module`` run on its parameters cast to ``dtype`` (``cast_tree``,
+    steps.py:106-111): the module itself at fp32, else a
+    ``functional_call`` on copies cast once here. Under grad mode the
+    casts carry fp32 gradients back to the parameters."""
+    if dtype == torch.float32:
+        return module
+    params = {n: p.to(dtype) for n, p in module.named_parameters()}
+    return lambda *args, **kwargs: torch.func.functional_call(module, params, args, kwargs)
+
+
+@contextlib.contextmanager
+def cpu_bf16_double_backward_guard(device: torch.device, dtype: torch.dtype):
+    """oneDNN off for a bf16 phase on the CPU. torch's CPU double backward
+    of a bf16 convolution through oneDNN returns a wrong weight gradient
+    once the image is over 16x16 (cosine to float64 about 0, where the same
+    op without oneDNN agrees to bf16 rounding); the gradient penalty takes
+    that double backward. The card's convolutions do not go through
+    oneDNN."""
+    off = device.type == "cpu" and dtype == torch.bfloat16
+    was = torch.backends.mkldnn.enabled
+    if off:
+        torch.backends.mkldnn.enabled = False
+    try:
+        yield
+    finally:
+        torch.backends.mkldnn.enabled = was
+
+
+def cast_models(models: Models, dtype: torch.dtype) -> Models:
+    """``cast_module`` of each module; a None stays None."""
+    return Models(*(None if m is None else cast_module(m, dtype) for m in models))
 
 
 @dataclasses.dataclass
@@ -101,12 +152,15 @@ def sample_w_rows(S: nn.Module, draws: GenDraws, num_rows: int) -> torch.Tensor:
     return torch.where(rows < draws.cutoff, w1[:, None, :], w2[:, None, :])
 
 
-def generate(models: Models, hist_batch: torch.Tensor, draws: GenDraws, num_layers: int):
-    """G forward from the draws; returns (NCHW images, w_styles, h_rows)."""
-    w_styles = sample_w_rows(models.S, draws, num_layers - 2)
-    h_w = models.H(hist_batch)
+def generate(models: Models, hist_batch: torch.Tensor, draws: GenDraws, num_layers: int,
+             dtype: torch.dtype = torch.float32):
+    """G forward from the draws, with z, the histogram and the noise in
+    ``dtype`` (steps.py:114-129); returns (NCHW images, w_styles, h_rows)."""
+    z = dataclasses.replace(draws, z1=draws.z1.to(dtype), z2=draws.z2.to(dtype))
+    w_styles = sample_w_rows(models.S, z, num_layers - 2)
+    h_w = models.H(hist_batch.to(dtype))
     h_rows = torch.stack([h_w, h_w], dim=1)  # histoGAN/histoGAN.py:900-902
-    return models.G(w_styles, h_rows, draws.noise), w_styles, h_rows
+    return models.G(w_styles, h_rows, draws.noise.to(dtype)), w_styles, h_rows
 
 
 def dequantize_images(x: torch.Tensor) -> torch.Tensor:
@@ -119,43 +173,54 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
-def d_loss(D: nn.Module, fake: torch.Tensor, real: torch.Tensor, apply_gp: bool):
+def d_loss(D: Callable, fake: torch.Tensor, real: torch.Tensor, apply_gp: bool,
+           dtype: torch.dtype = torch.float32):
     """Hinge D loss on NCHW fakes and reals; returns (loss, divergence, gp).
+    D runs on images cast to ``dtype``; its logits are cast to fp32.
 
     On non-GP steps the two halves go through D as one batch of 2B
     (steps.py:160-186: equal, since D works per sample). On GP steps one
-    real forward gives both the hinge logits and the penalty."""
+    real forward gives both the hinge logits and the penalty; the real
+    images enter it fp32, so their gradient is fp32 (steps.py:246-258)."""
+    def d_fp32(x):
+        return D(x.to(dtype)).float()
+
     if not apply_gp:
         b = fake.shape[0]
-        logits = D(torch.cat([fake, real], dim=0))
+        logits = D(torch.cat([fake.to(dtype), real.to(dtype)], dim=0)).float()
         div = losses.hinge_divergence(logits[b:], logits[:b])
-        return div, div, fake.new_zeros(())
-    fake_logits = D(fake)
-    real_logits, gp = losses.shared_forward_gradient_penalty(D, real)
+        return div, div, real.new_zeros(())
+    fake_logits = d_fp32(fake)
+    real_logits, gp = losses.shared_forward_gradient_penalty(d_fp32, real)
     div = losses.hinge_divergence(real_logits, fake_logits)
     return div + gp, div, gp
 
 
 def g_loss(models: Models, hist_batch: torch.Tensor, draws: GenDraws,
            pl_noise: Optional[torch.Tensor], pl_mean: torch.Tensor, cfg, apply_pl: bool):
-    """G loss; returns (loss, adversarial, histogram, mean path length)."""
-    images, w_styles, h_rows = generate(models, hist_batch, draws, cfg.num_layers)
-    adv = torch.mean(models.D(images))
+    """G loss; returns (loss, adversarial, histogram, mean path length).
+    ``models`` run in ``compute_dtype(cfg)`` (``cast_models``); the losses
+    and the histogram are fp32 (steps.py:274-314)."""
+    dtype = compute_dtype(cfg)
+    images, w_styles, h_rows = generate(models, hist_batch, draws, cfg.num_layers, dtype)
+    adv = torch.mean(models.D(images).float())
     gen_hists = histogram_feature(
-        F.relu(images).permute(0, 2, 3, 1), h=cfg.hist_bin, insz=cfg.hist_insz,
+        F.relu(images.float()).permute(0, 2, 3, 1), h=cfg.hist_bin, insz=cfg.hist_insz,
         resizing=cfg.hist_resizing, method=cfg.hist_method, sigma=cfg.hist_sigma)
     hist = losses.hellinger_histogram_loss(hist_batch, gen_hists, cfg.alpha)
     loss = adv + hist
-    avg_pl = images.new_zeros(())
+    avg_pl = hist.new_zeros(())
     if apply_pl:
-        # path-length regularisation (histoGAN/histoGAN.py:965-975) with the
-        # JAX package's safe std: var + 1e-12 keeps the sqrt's gradient
-        # finite when a w coordinate is equal across the batch
-        sigma = torch.sqrt(torch.var(w_styles, dim=0, keepdim=True, correction=1) + 1e-12)
+        # path-length regularisation (histoGAN/histoGAN.py:965-975) in fp32
+        # with the JAX package's safe std: var + 1e-12 keeps the sqrt's
+        # gradient finite when a w coordinate is equal across the batch (as
+        # it can be under bf16)
+        w32 = w_styles.float()
+        sigma = torch.sqrt(torch.var(w32, dim=0, keepdim=True, correction=1) + 1e-12)
         std = 0.1 / (sigma + EPS)
-        w2 = w_styles + pl_noise / (std + EPS)
-        pl_images = models.G(w2, h_rows, draws.noise)
-        pl_lengths = losses.path_length_lengths(pl_images, images)
+        w2 = w32 + pl_noise / (std + EPS)
+        pl_images = models.G(w2.to(dtype), h_rows, draws.noise.to(dtype))
+        pl_lengths = losses.path_length_lengths(pl_images.float(), images.float())
         avg_pl = torch.mean(pl_lengths)
         loss = loss + losses.path_length_penalty(pl_lengths, pl_mean)
     return loss, adv, hist, avg_pl
@@ -181,15 +246,18 @@ def _update(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads, a
 
 def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDraws, cfg,
             apply_gp: bool) -> Dict[str, torch.Tensor]:
-    models = Models(state.S, state.H, state.G, state.D)
+    dtype = compute_dtype(cfg)
+    with torch.no_grad():
+        gen = cast_models(Models(state.S, state.H, state.G, None), dtype)
+    D = cast_module(state.D, dtype)
     params = list(state.D.parameters())
     accum = cfg.gradient_accumulate_every
     grads, divs, gp = None, [], None
     for a in range(accum):
         with torch.no_grad():
-            fake, _, _ = generate(models, batch["d_hists"][a], draws.d[a], cfg.num_layers)
+            fake, _, _ = generate(gen, batch["d_hists"][a], draws.d[a], cfg.num_layers, dtype)
         real = to_nchw(dequantize_images(batch["d_images"][a]))
-        loss, div, gp = d_loss(state.D, fake, real, apply_gp)
+        loss, div, gp = d_loss(D, fake, real, apply_gp, dtype)
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
     _update(state.opt_d, params, grads, accum)
@@ -199,7 +267,10 @@ def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
 
 def g_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDraws, cfg,
             apply_pl: bool) -> Dict[str, torch.Tensor]:
-    models = Models(state.S, state.H, state.G, state.D)
+    dtype = compute_dtype(cfg)
+    models = cast_models(Models(state.S, state.H, state.G, None), dtype)
+    with torch.no_grad():  # no gradient is taken on D here
+        models = models._replace(D=cast_module(state.D, dtype))
     params = state.g_params()
     accum = cfg.gradient_accumulate_every
     grads, advs, hists, avg_pl = None, [], [], None
@@ -225,7 +296,8 @@ def train_step(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: Step
     averages. ``batch``: {'d_images': (A, B, S, S, C) uint8 or float NHWC,
     'd_hists', 'g_hists': (A, B, 3, h, h)}, on the state's device.
     Returns the step's metrics as 0-d tensors (no host sync)."""
-    metrics = d_phase(state, batch, draws, cfg, apply_gp)
+    with cpu_bf16_double_backward_guard(state.pl_mean.device, compute_dtype(cfg)):
+        metrics = d_phase(state, batch, draws, cfg, apply_gp)
     metrics.update(g_phase(state, batch, draws, cfg, apply_pl))
     if apply_ema:
         state.update_ema()

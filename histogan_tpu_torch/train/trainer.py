@@ -8,10 +8,16 @@ The trainer runs on an explicit ``device``. Weights are drawn on the CPU
 from a ``torch.Generator`` seeded with ``seed`` (so a seed gives the same
 weights on every device) and moved to the device; the training step's
 draws and the sampler's latents and noise come from a second generator
-on the device, seeded the same.
+on the device, seeded the same; the bf16 EMA's rounding bits from a third.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-``precision='bf16'``, ``opt_state_dtype`` / ``ema_dtype`` 'bf16', the
+The bf16 policy, as the JAX package has it: ``precision='bf16'`` trains
+in bf16 on fp32 master weights (``train/steps.py``);
+``opt_state_dtype='bf16'`` stores DiffGrad's state in bf16;
+``ema_dtype='bf16'`` stores SE/HE/GE in bf16, updated by stochastic
+rounding. Sampling (``evaluate``, ``generate_truncated``) is fp32 at any
+setting: a bf16 EMA is widened first, as in the JAX package.
+
+Not ported yet, and refused with NotImplementedError when asked for: the
 dataset held in device memory (``device_dataset``), FID tracking
 (``calculate_fid_every``), DiffAugment (``aug_prob`` > 0), the
 discriminator's attention and vector-quantize layers, and ``remat``.
@@ -49,6 +55,17 @@ class NanException(Exception):
     pass
 
 
+# the bf16 EMA's generator is seeded with seed + this ("EMA", as the JAX
+# step folds it into its key)
+EMA_SEED_OFFSET = 0x454D41
+DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16}
+
+
+def _check_choice(name: str, value, allowed) -> None:
+    if value not in allowed:
+        raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+
+
 def _refuse_deferred(**given) -> None:
     for name, asked in given.items():
         if asked:
@@ -67,10 +84,10 @@ class Trainer:
                  latent_dim=512, style_depth=8, seed=42, precision="fp32",
                  calculate_fid_every=None, device_dataset=False, opt_state_dtype=None,
                  ema_dtype=None, remat=False, num_workers=None, device="cuda"):
+        _check_choice("precision", precision, ("fp32", "bf16"))
+        _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
+        _check_choice("ema_dtype", ema_dtype, (None, "fp32", "bf16"))
         _refuse_deferred(
-            precision=precision != "fp32",
-            opt_state_dtype=opt_state_dtype not in (None, "fp32"),
-            ema_dtype=ema_dtype not in (None, "fp32"),
             device_dataset=bool(device_dataset),
             calculate_fid_every=bool(calculate_fid_every),
             aug_prob=aug_prob > 0.0,
@@ -98,6 +115,7 @@ class Trainer:
         self.device = setup_runtime(device)
         self.seed = int(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.opt_state_dtype, self.ema_dtype = DTYPES[opt_state_dtype], DTYPES[ema_dtype]
         self.num_workers = int(num_workers) if num_workers else None
         self.steps = 0
         self.av: Optional[torch.Tensor] = None
@@ -115,8 +133,9 @@ class Trainer:
     # ------------------------------------------------------------ setup
     def init_GAN(self) -> None:
         """S/H/G/D, the EMA copies SE/HE/GE (reset_parameter_averaging
-        starts the EMA as a copy) and a DiffGrad(lr, betas=(0.5, 0.9)) for
-        each side."""
+        starts the EMA as a copy, cast to ``ema_dtype``) and a
+        DiffGrad(lr, betas=(0.5, 0.9)) for each side, its state in
+        ``opt_state_dtype``."""
         cfg = self.cfg
         init_gen = torch.Generator().manual_seed(self.seed)
         S = reset_parameters_(StyleVectorizer(cfg.latent_dim, cfg.style_depth), init_gen)
@@ -130,13 +149,16 @@ class Trainer:
                           cfg.fq_dict_size, cfg.attn_layers, cfg.transparent),
             init_gen)
         live = {k: m.to(self.device) for k, m in zip(LIVE, (S, H, G, D))}
-        ema = {e: copy.deepcopy(live[k]).eval().requires_grad_(False) for e, k in EMA.items()}
+        ema = {e: copy.deepcopy(live[k]).to(self.ema_dtype).eval().requires_grad_(False)
+               for e, k in EMA.items()}
+        opt = dict(lr=cfg.learning_rate, betas=(0.5, 0.9), state_dtype=self.opt_state_dtype)
         self.state = HistoGANState(
             **live, **ema,
-            opt_g=DiffGrad([p for k in ("S", "H", "G") for p in live[k].parameters()],
-                           lr=cfg.learning_rate, betas=(0.5, 0.9)),
-            opt_d=DiffGrad(live["D"].parameters(), lr=cfg.learning_rate, betas=(0.5, 0.9)),
+            opt_g=DiffGrad([p for k in ("S", "H", "G") for p in live[k].parameters()], **opt),
+            opt_d=DiffGrad(live["D"].parameters(), **opt),
             pl_mean=torch.zeros((), device=self.device),
+            ema_gen=torch.Generator(device=self.device).manual_seed(
+                self.seed + EMA_SEED_OFFSET),
         )
         self.av = None
 
@@ -157,13 +179,15 @@ class Trainer:
         return self.state.modules()
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights in the flat reference layout."""
-        return self.state.reference_state_dict()
+        """The weights in the flat reference layout, all fp32 (a bf16 EMA
+        widened, as the JAX package's ``bundle_from_trainer`` does)."""
+        return {k: v.float() for k, v in self.state.reference_state_dict().items()}
 
     def load_state_dict(self, sd) -> List[str]:
         """Load a flat reference-layout state dict, strictly on each
-        prefix. Returns the keys under no prefix of the GAN (a published
-        checkpoint's ``D_aug.*`` copy of D)."""
+        prefix; each tensor is cast to its module's dtype (into a bf16 EMA
+        rounded to nearest). Returns the keys under no prefix of the GAN
+        (a published checkpoint's ``D_aug.*`` copy of D)."""
         parts, others = convert.split_by_prefix(sd)
         for prefix, module in self.models().items():
             module.load_state_dict(parts[prefix], strict=True)
@@ -308,7 +332,12 @@ class Trainer:
         return images
 
     def _ema_params(self) -> Dict[str, nn.Module]:
-        return {"S": self.SE, "H": self.HE, "G": self.GE}
+        """The EMA modules for sampling, fp32: a bf16 EMA is widened into
+        copies (trainer.py:572-581 of the JAX package)."""
+        ema = {"S": self.SE, "H": self.HE, "G": self.GE}
+        if self.ema_dtype == torch.float32:
+            return ema
+        return {k: copy.deepcopy(m).float() for k, m in ema.items()}
 
     @torch.inference_mode()
     def compute_av(self, S: nn.Module) -> torch.Tensor:

@@ -39,7 +39,8 @@ class HistoGANConfig:
     dataset_aug_prob: float = 0.0
     save_every: int = 1000
     trunc_psi: float = 0.75
-    # compute precision; this slice runs fp32 only
+    # the train step's compute dtype: "fp32", or "bf16" on fp32 masters
+    # (train/steps.py compute_dtype); sampling is fp32 at either
     precision: str = "fp32"
 
     @property

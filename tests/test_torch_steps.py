@@ -83,11 +83,13 @@ def _torch(x):
     return torch.from_numpy(np.array(x))
 
 
-def jax_step_draws(key, cfg, apply_pl):
+def jax_step_draws(key, cfg, apply_pl, z_dtype=jnp.float32):
     """The draws ``make_train_step``'s step makes from ``key``, with its
     splits: k_d, k_g = split(key); split(k_d, A), then split(k, 3) and the
     generator's split(k_gen) and split(k_style, 4); split(k_g, A), then
-    split(k, 3) whose third key draws the path-length noise."""
+    split(k, 3) whose third key draws the path-length noise. Under bf16
+    the JAX step draws z in bf16 (``z_dtype``), exact in fp32; the noise
+    and the path-length noise stay fp32."""
     b, rows = cfg.batch_size, cfg.num_layers - 2
 
     def gen(k_gen):
@@ -96,8 +98,8 @@ def jax_step_draws(key, cfg, apply_pl):
         use_mixed = jax.random.uniform(k3, ()) < cfg.mixed_prob
         tt = jax.random.randint(k4, (), 0, rows)
         return steps.GenDraws(
-            z1=_torch(jax.random.normal(k1, (b, cfg.latent_dim))),
-            z2=_torch(jax.random.normal(k2, (b, cfg.latent_dim))),
+            z1=_torch(jax.random.normal(k1, (b, cfg.latent_dim), z_dtype).astype(jnp.float32)),
+            z2=_torch(jax.random.normal(k2, (b, cfg.latent_dim), z_dtype).astype(jnp.float32)),
             cutoff=_torch(jnp.where(use_mixed, tt, rows)),
             noise=_torch(jax.random.uniform(k_noise, (b, cfg.image_size, cfg.image_size, 1))))
 

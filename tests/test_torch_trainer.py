@@ -172,11 +172,17 @@ def test_nan_rolls_back_and_raises(images, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("option", [
-    {"precision": "bf16"}, {"opt_state_dtype": "bf16"}, {"ema_dtype": "bf16"},
     {"device_dataset": True}, {"calculate_fid_every": 100}, {"aug_prob": 0.5},
     {"attn_layers": (1,)}, {"fq_layers": (1,)}, {"remat": True}])
 def test_unported_options_raise(tmp_path, option):
     with pytest.raises(NotImplementedError):
+        _trainer(tmp_path, **option)
+
+
+@pytest.mark.parametrize("option", [
+    {"precision": "fp16"}, {"opt_state_dtype": "fp16"}, {"ema_dtype": "fp16"}])
+def test_precision_options_outside_the_accepted_raise(tmp_path, option):
+    with pytest.raises(ValueError):
         _trainer(tmp_path, **option)
 
 
@@ -191,6 +197,24 @@ def test_cli_trains_and_saves(images, tmp_path):
     rows = (tmp_path / "res" / "c" / "metrics.jsonl").read_text().splitlines()
     assert json.loads(rows[0])["step"] == 0
     assert (tmp_path / "res" / "c" / "0-ema.jpg").is_file()
+
+
+@pytest.mark.parametrize("checkpoint", [False, True])
+def test_export_pt_says_when_it_writes_seeded_weights(tmp_path, capsys, checkpoint):
+    """With no --load_pt and no checkpoint, --export_pt writes the weights
+    drawn from the seed, and says so."""
+    args = ["--device", "cpu", "--name", "e", "--results_dir", str(tmp_path / "res"),
+            "--models_dir", str(tmp_path / "mod"), "--image_size", "32",
+            "--network_capacity", "2", "--seed", "5"]
+    if checkpoint:
+        t = Trainer("e", str(tmp_path / "res"), str(tmp_path / "mod"), device="cpu",
+                    image_size=32, network_capacity=2, seed=5)
+        t.init_GAN()
+        t.save(0)
+    cli.main(args + ["--export_pt", str(tmp_path / "out.pt")])
+    out = capsys.readouterr().out
+    assert ("exporting weights drawn with seed 5" in out) != checkpoint
+    assert (tmp_path / "out.pt").is_file()
 
 
 def test_export_pt_converts_back_to_the_jax_parameters(tmp_path):
