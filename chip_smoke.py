@@ -37,7 +37,24 @@ Phases, each printing its lines:
      the same step without the gradient penalty;
   9b. the step-0 step (GP and PL) under precision='bf16' against fp32 on
      the card at full width and batch 2, and against bf16 on the CPU at
-     BF16_CPU_SIZE px (bf16 on the CPU costs several times fp32).
+     BF16_CPU_SIZE px (bf16 on the CPU costs several times fp32);
+  R1. recolor (reHistoGAN) at 256 px, capacity 16, latent 512, style depth
+     8, skip connections to the GAN head: weights from seed 0 written as a
+     reference-layout .pt; ``rehistogan-torch``'s train_from_folder
+     (generate=True) toward a target JPEG, a target .npy and, with
+     sampling, a pool .npy; ms per recolored image at batch 1 and imgs/s of
+     RecoloringTrainer.evaluate at 16 images; the card's recolor against
+     the CPU's;
+  R2. recoloring training: RecoloringTrainer.set_data_src on 64 written
+     images and steps 0-9 at batch 2 x accumulation 8, fp32, then save,
+     load into a new trainer and one more step; K1 and K2 launches per
+     step; the rate at batch 16 x accumulation 1 as well;
+  R3. card vs CPU: the recoloring step-0 step at full width, batch 2,
+     with and without the GP, in phase 9's gate forms.
+R1 and R2 run after phase 8b, before the phases that run steps on the
+CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes too: (1, 64^2), a
+recolor target; (2, 64^2), the loss; and K1 at (2, 64^2) on the
+hist-of-hist input, a histogram read as an image.
 Then one JSON line with the kernels, and last the result line. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -45,6 +62,7 @@ check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import copy
 import dataclasses
 import json
 import math
@@ -68,6 +86,13 @@ GRAD_TOL_REL = 1e-4
 # Card vs CPU at full width: 14 modulated convs of up to 2048 x 9 terms
 # summed in other orders (cuDNN vs the CPU's algorithms), fp32 throughout.
 SLICE_TOL = 1e-3
+# Card vs CPU recolor (reHistoGAN) at full width. With weights drawn from a
+# seed the recolor's output before its clip to [0, 1] reaches ~800 (0.2 %
+# of it lies inside (0, 1)); there fp32 rounding alone puts the CPU and the
+# card (cuDNN, some convolutions by FFT) ~2e-3 and ~5e-3 from a float64
+# forward (phase R1 prints both; PERF.md). So the two are held to a share
+# of the largest pre-clip entry, not to SLICE_TOL absolute.
+RECOLOR_TOL_REL = 2e-5
 STEP_LOSS_RTOL = 1e-3  # card vs CPU train step losses, the same reason
 LR = 2e-4
 # Card vs CPU gradients, per tensor, relative to its largest entry. A
@@ -86,6 +111,10 @@ STEP_GRAD_RTOL = 5e-2
 # entries must be settled, so that the gate covers the bulk of them.
 STEP_PARAM_CLOSE = 1e-6
 STEP_SETTLED_MIN = 0.5
+# A conv bias that feeds an InstanceNorm (reHistoGAN's encoder) has an
+# exact gradient of 0; on either device it is rounding, held to this share
+# of its weight's largest gradient entry.
+NORMED_BIAS_RTOL = 1e-5
 # Phase 9b: the step-0 step under bf16 on the card against fp32 on the
 # card and against bf16 on the CPU. bf16 rounds G's images and D's
 # activations to 8 bits, and any other order of summation rounds them
@@ -102,11 +131,20 @@ BF16_LOSS_RTOL = {"d_loss": 2.5e-2, "g_loss": 1.2e-1, "gp_loss": 2e-2, "h_loss":
 BF16_GRAD_COS = 0.9
 BF16_CPU_SIZE = 64
 BF16 = dict(precision="bf16", opt_state_dtype="bf16", ema_dtype="bf16")
-SHAPES = [(1, 150 * 150), (16, 64 * 64), (8, 250 * 250)]  # (B, N) of packed, K1
-BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097)]  # (B, N) of packed, K2
+# (B, N) of packed and its input, K1: "pixels" of random images, or
+# "hist_of_hist", a histogram read as a 64x64 image (reHistoGAN's variance
+# loss), whose pixels are ~1e-4: held by the relative gates alone
+SHAPES = [(1, 150 * 150, "pixels"), (16, 64 * 64, "pixels"), (8, 250 * 250, "pixels"),
+          (1, 64 * 64, "pixels"), (2, 64 * 64, "pixels"), (2, 64 * 64, "hist_of_hist")]
+BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097), (2, 64 * 64)]  # (B, N) of packed, K2
 MAIN_SHAPE = (16, 64 * 64)  # both kernels on the training path: the loss's histograms
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
 FLAGSHIP = dict(image_size=256, network_capacity=16, latent_dim=512, style_depth=8)
+# reHistoGAN at the rehistogan CLI's defaults (histogan_tpu/cli/rehistogan.py:261-347)
+REHISTO = dict(FLAGSHIP, skip_conn_to_GAN=True, variance_loss=True, rec_loss="laplacian",
+               internal_hist=False, hist_bin=64, hist_insz=150, hist_resizing="sampling")
+REHISTO_HYPER = dict(alpha=32.0, beta=1.5, gamma=2.0)
+REHISTO_ACCUM = 8
 CARD = "cuda"  # the device under test
 
 
@@ -222,10 +260,24 @@ def phase_build(histogram_cuda) -> dict:
     return hmma
 
 
+def hist_of_hist_pixels(b: int, seed: int) -> np.ndarray:
+    """(b, 64 * 64, 3): relu of b images' histograms read as 64x64 images,
+    as reHistoGAN's variance loss reads its target histograms (plain
+    version, on the CPU)."""
+    from histogan_tpu_torch.ops.histogram import histogram_feature
+
+    x = torch.from_numpy(np.random.default_rng(seed).random((b, 256, 256, 3), dtype=np.float32))
+    hists = histogram_feature(x, resizing="sampling")
+    return torch.relu(hists).permute(0, 2, 3, 1).reshape(b, -1, 3).numpy()
+
+
 def phase_forward(histogram_cuda, dev):
     max_err, rows = 0.0, []
-    for b, n in SHAPES:
-        x = np.random.default_rng(b * 7919 + n).random((b, n, 3), dtype=np.float32)
+    for b, n, kind in SHAPES:
+        if kind == "hist_of_hist":
+            x = hist_of_hist_pixels(b, seed=b * 7919 + n)
+        else:
+            x = np.random.default_rng(b * 7919 + n).random((b, n, 3), dtype=np.float32)
         packed = histogram_cuda.pack_pixels(torch.from_numpy(x).to(dev)).contiguous()
         got = histogram_cuda.hist_core(packed, INV_SIGMA2)
         want = histogram_cuda.hist_core_reference(packed, INV_SIGMA2)
@@ -234,12 +286,14 @@ def phase_forward(histogram_cuda, dev):
         err = (g - w).abs().max().item()
         rel = err / w.abs().max().item()
         raw_rel = ((got - want).abs().max() / want.abs().max()).item()  # un-normalised
-        check(bool(torch.isfinite(got).all()), f"kernel output finite at B={b} N={n}")
-        check(err <= KERNEL_TOL_ABS, f"max|kernel-plain| {err:.3e} <= {KERNEL_TOL_ABS} at B={b} N={n}")
-        check(rel <= KERNEL_TOL_REL, f"relative {rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n}")
+        check(bool(torch.isfinite(got).all()), f"kernel output finite at B={b} N={n} {kind}")
+        if kind == "pixels":
+            check(err <= KERNEL_TOL_ABS,
+                  f"max|kernel-plain| {err:.3e} <= {KERNEL_TOL_ABS} at B={b} N={n}")
+            max_err = max(max_err, err)
+        check(rel <= KERNEL_TOL_REL, f"relative {rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n} {kind}")
         check(raw_rel <= KERNEL_TOL_REL,
-              f"un-normalised relative {raw_rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n}")
-        max_err = max(max_err, err)
+              f"un-normalised relative {raw_rel:.3e} <= {KERNEL_TOL_REL} at B={b} N={n} {kind}")
         ms, plain_ms, (p1, k1, k2, p2) = alternate_ms(
             lambda: histogram_cuda.hist_core_reference(packed, INV_SIGMA2),
             lambda: histogram_cuda.hist_core(packed, INV_SIGMA2))
@@ -249,13 +303,15 @@ def phase_forward(histogram_cuda, dev):
         del iy_ku, kv
         chunk, n_chunks = histogram_cuda.split_pixels(
             b, n, torch.cuda.get_device_properties(dev).multi_processor_count)
-        row = {"B": b, "N": n, "max_abs_err": err, "rel_err": rel, "raw_rel_err": raw_rel,
+        row = {"B": b, "N": n, "input": kind, "max_abs_err": err, "rel_err": rel,
+               "raw_rel_err": raw_rel, "max_plain": want.abs().max().item(),
                "ms": ms, "device_ms": dev_ms,
                "plain_ms": plain_ms, "library_ms": lib_ms,
                **bound_row(histogram_cuda, "histogram_fwd", b, n, dev_ms),
                "chunks": n_chunks, "chunk": chunk}
         rows.append(row)
-        print(f"kernel: B={b} N={n} max|d|={err:.3e} rel={rel:.3e} un-normalised rel={raw_rel:.3e} "
+        print(f"kernel: B={b} N={n} {kind} max|d|={err:.3e} rel={rel:.3e} "
+              f"un-normalised rel={raw_rel:.3e} (max|plain| {row['max_plain']:.3e}) "
               f"kernel {k1:.4f}/{k2:.4f} ms plain {p1:.4f}/{p2:.4f} ms "
               f"({n_chunks} chunks of {chunk} px); device {dev_ms:.4f} ms, bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}), share {row['share']:.3f}, "
@@ -543,32 +599,40 @@ def profile_steps(t, out: Path, prefix: str = "") -> None:
     """Times and a torch.profiler view of the flagship step by its flags:
     plain, GP (every 4th), GP+PL (step 0 of every 32); the operator tables
     go to ``out``, their names led by ``prefix``."""
+    from histogan_tpu_torch.train.steps import draw_step, train_step
+
+    batch = t._device_batch(next(t.loader))
+
+    def step(gp, pl):
+        return lambda: train_step(t.state, batch, draw_step(t.gen, t.cfg, t.device, pl), t.cfg,
+                                  gp, pl)
+
+    profile_fns({"plain": step(False, False), "gp": step(True, False),
+                 "gp+pl": step(True, True)}, out, prefix)
+
+
+def profile_fns(fns: dict, out: Path, prefix: str) -> dict:
+    """For each {name: step function}: three host-clock runs and one under
+    torch.profiler, whose device time by kernel is printed and whose
+    operator table goes to ``out``. Returns {name: (device ms, busy share)}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from histogan_tpu_torch.train.steps import draw_step, train_step
-
     out.mkdir(parents=True, exist_ok=True)
-    batch = t._device_batch(next(t.loader))
-    flag_sets = {"plain": (False, False), "gp": (True, False), "gp+pl": (True, True)}
-
-    def step(gp, pl):
-        draws = draw_step(t.gen, t.cfg, t.device, pl)
-        return train_step(t.state, batch, draws, t.cfg, gp, pl)
-
-    for name, (gp, pl) in flag_sets.items():
-        step(gp, pl)
+    result = {}
+    for name, fn in fns.items():
+        fn()
         torch.cuda.synchronize()
         ms = []
         for _ in range(3):
             t0 = time.perf_counter()
-            step(gp, pl)
+            fn()
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
         print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            step(gp, pl)
+            fn()
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = prof.key_averages()
@@ -586,6 +650,8 @@ def profile_steps(t, out: Path, prefix: str = "") -> None:
               f"{device_us / 1e3:.2f} ms, busy share {device_us / wall_us:.3f}")
         for e in top + hist:
             print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}")
+        result[name] = (device_us / 1e3, device_us / wall_us)
+    return result
 
 
 def diffgrad_first_move(g: torch.Tensor) -> torch.Tensor:
@@ -607,10 +673,10 @@ def to_device(d, x):
     return x
 
 
-def applied_grads(t) -> dict:
+def applied_grads(t, prefixes=("S", "H", "G", "D")) -> dict:
     """{reference name: (parameter, the gradient its optimizer last applied)}."""
     return {f"{p}.{n}": (w, (t.state.opt_d if p == "D" else t.state.opt_g).state[w]["previous_grad"])
-            for p in ("S", "H", "G", "D") for n, w in getattr(t.state, p).named_parameters()}
+            for p in prefixes for n, w in getattr(t.state, p).named_parameters()}
 
 
 def step_batch(size: int, cfg):
@@ -636,38 +702,74 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
                seed=3)
     tr = {name: Trainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
           for name, d in (("card", CARD), ("cpu", "cpu"))}
+    batch, draws = step_batch(cfg["image_size"], tr["cpu"].cfg)
+    flags = "+".join(f for f, on in (("GP", apply_gp), ("PL", apply_pl)) if on) or "plain"
+    names = ("d_loss", "g_loss", "h_loss") + (("gp_loss",) if apply_gp else ()) \
+        + (("pl_mean",) if apply_pl else ())
+    return compare_card_cpu_step(
+        tr, lambda t: train_step(t.state, to_device(t.device, batch), to_device(t.device, draws),
+                                 t.cfg, apply_gp=apply_gp, apply_pl=apply_pl),
+        names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2")
+
+
+def normed_bias(name: str) -> bool:
+    """A conv bias that feeds an InstanceNorm (reHistoGAN's encoder
+    blocks): its exact gradient is 0, so what either device computes is
+    rounding."""
+    return name.startswith("ED.encoder_blocks.") and name.endswith(("net.0.bias", "net.3.bias"))
+
+
+def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
+                          exact_grads: Optional[dict] = None) -> dict:
+    """Runs ``step(trainer)`` on tr['card'] and tr['cpu'] (the same
+    weights, checked) and holds the card to the CPU: the losses ``names``
+    to STEP_LOSS_RTOL relative, each tensor's applied gradient to
+    STEP_GRAD_RTOL of its largest entry (a bias before an InstanceNorm, whose
+    exact gradient is 0, to NORMED_BIAS_RTOL of its weight's), and the
+    post-step parameters where the gradient's sign is settled. With
+    ``exact_grads`` (the same step's gradients in float64), a tensor beyond
+    STEP_GRAD_RTOL passes if the card is no farther from them than the CPU
+    is: the gap is then the CPU's own rounding."""
     for t in tr.values():
         t.init_GAN()
     start = tr["card"].reference_state_dict()
     check(all(torch.equal(start[k].cpu(), v) for k, v in tr["cpu"].reference_state_dict().items()),
           "same weights on both")
     del start
-    size = cfg["image_size"]
-    batch, draws = step_batch(size, tr["cpu"].cfg)
-    before = {f"{p}.{n}": w.detach().clone() for p in ("S", "H", "G", "D")
+    before = {f"{p}.{n}": w.detach().clone() for p in prefixes
               for n, w in getattr(tr["cpu"].state, p).named_parameters()}
     metrics, secs = {}, {}
     for name, t in tr.items():
         t0 = time.perf_counter()
-        m = train_step(t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
-                       apply_gp=apply_gp, apply_pl=apply_pl)
-        metrics[name] = {k: v.item() for k, v in m.items()}
+        metrics[name] = {k: v.item() for k, v in step(t).items()}
         secs[name] = time.perf_counter() - t0
-    names = ("d_loss", "g_loss", "h_loss") + (("gp_loss",) if apply_gp else ()) \
-        + (("pl_mean",) if apply_pl else ())
     loss_rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
                 for k in names}
 
-    r = dict(grad_rel=0.0, grad_worst="", worst=0.0, off=0, total=0, settled=0, bad=0,
-             flipped=0, flipped_rel=0.0, moved=0)
-    card = applied_grads(tr["card"])
-    for k, (w_cpu, g_cpu) in applied_grads(tr["cpu"]).items():
+    r = dict(grad_rel=0.0, grad_worst="", normed_rel=0.0, worst=0.0, off=0, total=0, settled=0,
+             bad=0, flipped=0, flipped_rel=0.0, moved=0, beyond=[], card_exact=0.0,
+             cpu_exact=0.0)
+    card = applied_grads(tr["card"], prefixes)
+    grads = applied_grads(tr["cpu"], prefixes)
+    for k, (w_cpu, g_cpu) in grads.items():
         w_card, g_card = (x.detach().cpu() for x in card[k])
         w_cpu = w_cpu.detach()
         gap = (g_card - g_cpu).abs().max().item()
         scale = max(g_cpu.abs().max().item(), 1e-30)  # a tensor may take no gradient
-        if gap / scale > r["grad_rel"]:
-            r["grad_rel"], r["grad_worst"] = gap / scale, k
+        if normed_bias(k):
+            w_scale = grads[k.replace("bias", "weight")][1].abs().max().item()
+            r["normed_rel"] = max(r["normed_rel"], max(g_cpu.abs().max().item(),
+                                                       g_card.abs().max().item()) / w_scale)
+        else:
+            if gap / scale > r["grad_rel"]:
+                r["grad_rel"], r["grad_worst"] = gap / scale, k
+            if exact_grads is not None:
+                card_exact, cpu_exact = ((g.double() - exact_grads[k]).abs().max().item() / scale
+                                         for g in (g_card, g_cpu))
+                r["card_exact"] = max(r["card_exact"], card_exact)
+                r["cpu_exact"] = max(r["cpu_exact"], cpu_exact)
+                if gap / scale > STEP_GRAD_RTOL:
+                    r["beyond"].append((k, gap / scale, card_exact, cpu_exact))
         diff = (w_card - w_cpu).abs()
         r["worst"] = max(r["worst"], diff.max().item())
         r["off"] += int((diff > STEP_PARAM_CLOSE).sum())
@@ -684,25 +786,39 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
         r["moved"] += int(not torch.equal(w_cpu, before[k]))
     for t in tr.values():
         t.close()
-    flags = "+".join(f for f, on in (("GP", apply_gp), ("PL", apply_pl)) if on) or "plain"
-    print(f"card vs cpu: step 0 ({flags}) {size} px batch 2: "
+    r["loss_rel"] = loss_rel
+    print(f"card vs cpu: {label}: "
           + " ".join(f"{k} {metrics['card'][k]:.6f}/{metrics['cpu'][k]:.6f} (rel {loss_rel[k]:.2e})"
                      for k in names)
           + f"; gradients worst tensor rel {r['grad_rel']:.3e} ({r['grad_worst']}), "
-          f"{r['flipped']} entries of opposite sign, the largest {r['flipped_rel']:.3e} of its "
+          + (f"biases before an InstanceNorm {r['normed_rel']:.3e} of their weight's, "
+             if any(normed_bias(k) for k in grads) else "")
+          + f"{r['flipped']} entries of opposite sign, the largest {r['flipped_rel']:.3e} of its "
           f"tensor's largest; parameters max|d| {r['worst']:.3e}, {r['off']} of {r['total']} "
           f"live entries off by > {STEP_PARAM_CLOSE}, {r['settled']} settled, {r['bad']} of them "
           f"outside fp32 rounding plus the gradient gap through DiffGrad; {r['moved']} tensors "
           f"moved (card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s)")
+    if exact_grads is not None:
+        print(f"card vs cpu:   against the float64 step, the worst tensor's gap: card "
+              f"{r['card_exact']:.3e}, CPU {r['cpu_exact']:.3e} of its largest entry")
+    for k, rel, card_exact, cpu_exact in r["beyond"]:
+        print(f"card vs cpu:   {k}: card vs CPU {rel:.3e}; against the float64 step card "
+              f"{card_exact:.3e}, CPU {cpu_exact:.3e}")
     for k in names:
         check(math.isfinite(metrics["card"][k]) and loss_rel[k] <= STEP_LOSS_RTOL,
-              f"card vs CPU {k} within {STEP_LOSS_RTOL} relative ({flags})")
-    check(r["grad_rel"] <= STEP_GRAD_RTOL,
-          f"gradients within {STEP_GRAD_RTOL} of each tensor's largest ({flags})")
-    check(r["bad"] == 0, f"post-step parameters on settled entries: {r['bad']} outside ({flags})")
+              f"card vs CPU {k} within {STEP_LOSS_RTOL} relative ({label})")
+    if exact_grads is None:
+        check(r["grad_rel"] <= STEP_GRAD_RTOL,
+              f"gradients within {STEP_GRAD_RTOL} of each tensor's largest ({label})")
+    for k, rel, card_exact, cpu_exact in r["beyond"]:
+        check(card_exact <= cpu_exact, f"{k}: the card ({card_exact:.3e}) no farther from the "
+                                       f"float64 step than the CPU ({cpu_exact:.3e}) ({label})")
+    check(r["normed_rel"] <= NORMED_BIAS_RTOL,
+          f"biases before an InstanceNorm within {NORMED_BIAS_RTOL} of their weight's ({label})")
+    check(r["bad"] == 0, f"post-step parameters on settled entries: {r['bad']} outside ({label})")
     check(r["settled"] >= STEP_SETTLED_MIN * r["total"],
-          f"{r['settled']} of {r['total']} entries settled, >= {STEP_SETTLED_MIN} ({flags})")
-    check(r["moved"] > 0, f"the step moved the parameters ({flags})")
+          f"{r['settled']} of {r['total']} entries settled, >= {STEP_SETTLED_MIN} ({label})")
+    check(r["moved"] > 0, f"the step moved the parameters ({label})")
     return r
 
 
@@ -778,6 +894,338 @@ def phase_bf16_step() -> None:
                       bf16_step_run("cpu", "bf16", BF16_CPU_SIZE), "cpu bf16", BF16_CPU_SIZE)
 
 
+# ------------------------------------------------------------ reHistoGAN
+def write_photo(path: Path, seed: int, size=(384, 512)) -> None:
+    """A smooth random RGB JPEG (blocks of colour plus noise), H x W = size."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    h, w = size
+    base = rng.random((h // 32, w // 32, 3)) * 255
+    img = np.kron(base, np.ones((32, 32, 1))) + rng.normal(0, 12, (h, w, 3))
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=95)
+
+
+def plain_hists(images: np.ndarray) -> np.ndarray:
+    """(N, 3, 64, 64) histograms of (N, H, W, 3) images, plain version on
+    the CPU, resized by sampling."""
+    from histogan_tpu_torch.ops.histogram import histogram_feature
+
+    return histogram_feature(torch.from_numpy(images), resizing="sampling").numpy()
+
+
+def phase_recolor(histogram_cuda, dev, smi) -> dict:
+    """R1: recoloring through rehistogan-torch's entry points; returns the
+    K1 and K2 launches of the three --generate runs."""
+    import contextlib
+    import io
+
+    from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    from histogan_tpu_torch.data.dataset import load_rgb
+    from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, resize_if_needed
+    from histogan_tpu_torch.train.rehisto_steps import RecolorModels, recolor_forward
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    work = WORK / "recolor"
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
+    t0 = time.perf_counter()
+    src = RecoloringTrainer("recolor", work / "cpu_r", work / "cpu_m", device="cpu", **cfg)
+    src.init_GAN()
+    pt = work / "weights.pt"
+    n_tensors = src.export_pt(pt)
+    n_params = sum(p.numel() for m in src.models().values() for p in m.parameters())
+    print(f"recolor: weights seed 0, {n_params} parameters (ED/H/G/D), {n_tensors} tensors, "
+          f".pt {pt.stat().st_size} bytes in {time.perf_counter() - t0:.2f} s")
+
+    inp, tgt = work / "input.jpg", work / "target.jpg"
+    write_photo(inp, 11)
+    write_photo(tgt, 12)
+    rng = np.random.default_rng(13)
+    np.save(work / "target_hist.npy", plain_hists(load_rgb(tgt)[None]))
+    pool = plain_hists(rng.random((8, 256, 256, 3), dtype=np.float32))[:, None]
+    np.save(work / "pool.npy", pool)  # (N, 1, 3, 64, 64), as create_hist_data writes it
+    cli = dict(results_dir=str(work / "results"), models_dir=str(work / "models"),
+               name="recolor", image_size=cfg["image_size"],
+               network_capacity=cfg["network_capacity"], skip_conn_to_GAN=True,
+               variance_loss=True, hist_resizing="sampling", load_histogan_weights=False,
+               load_pt=str(pt), generate=True, input_image=str(inp), seed=0, device=CARD)
+    out = work / "results" / "recolor"
+    launches, counts = {}, {"histogram_fwd": 0, "histogram_bwd": 0}
+    for what, kw in (("image", dict(target_hist=str(tgt))),
+                     ("npy", dict(target_hist=str(work / "target_hist.npy"))),
+                     ("sampling", dict(sampling=True, target_number=2,
+                                       histogram_pool=str(work / "pool.npy")))):
+        reset_counts(histogram_cuda)
+        t0 = time.perf_counter()
+        train_from_folder(**cli, **kw)
+        torch.cuda.synchronize()
+        launches[what] = histogram_cuda.launches
+        counts["histogram_fwd"] += histogram_cuda.launches
+        counts["histogram_bwd"] += histogram_cuda.bwd_launches
+        print(f"recolor: --generate toward a target {what}: {time.perf_counter() - t0:.2f} s, "
+              f"K1 launches {launches[what]}")
+    files = sorted(p.name for p in out.glob("*-generated.jpg"))
+    check(len(files) == 4, f"4 recolored images written (image, npy, 2 sampled): {files}")
+    check(launches["image"] >= 1, f"K1 launched on the recolor path ({launches})")
+
+    # ms per recolored image at batch 1, and evaluate's rate at 16
+    model = RecoloringTrainer("recolor", work / "results", work / "models", device=CARD, **cfg)
+    model.init_GAN()
+    model.load_pt(pt)
+    hist_block = RGBuvHistBlock(insz=150, h=64, resizing="sampling")
+
+    def one():
+        with contextlib.redirect_stdout(io.StringIO()):
+            process_image(model, "recolor", str(inp), str(tgt), image_size=256,
+                          results_dir=str(work / "results"), rng=np.random.default_rng(0))
+
+    img = np.asarray(load_rgb(inp), np.float32)
+    img256 = torch.from_numpy(img[None]).permute(0, 3, 1, 2)
+    img256 = torch.nn.functional.interpolate(img256, size=(256, 256), mode="bilinear",
+                                             align_corners=False).permute(0, 2, 3, 1).numpy()
+    h1 = np.load(work / "target_hist.npy")
+
+    def bare():
+        model.recolor(img256, h1)
+
+    rates = {}
+    for name, fn in (("process_image", one), ("recolor", bare)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+        rates[name] = 1e3 * (time.perf_counter() - t0) / 10
+    imgs16 = np.random.default_rng(14).random((16, 256, 256, 3), dtype=np.float32)
+    hists16 = plain_hists(np.random.default_rng(15).random((16, 128, 128, 3), dtype=np.float32))
+    model.evaluate("eval16", image_batch=imgs16, hist_batch=hists16)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        got16 = model.evaluate("eval16", image_batch=imgs16, hist_batch=hists16)
+    torch.cuda.synchronize()
+    eval_rate = 3 * 16 / (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    check(got16.shape == (16, 256, 256, 3) and bool(np.isfinite(got16).all())
+          and float(got16.std()) > 0.0, "evaluate at 16: finite, not constant")
+    print(f"recolor: {rates['process_image']:.2f} ms per recolored image at batch 1 "
+          f"(process_image: decode, resize, target histogram, recolor, JPEG; host clock, "
+          f"synchronised, mean of 10 after a warm-up), the recolor forward alone "
+          f"{rates['recolor']:.2f} ms; RecoloringTrainer.evaluate at 16 images and 16 targets "
+          f"{eval_rate:.2f} imgs/s (peak {peak} bytes) on {smi}")
+
+    # the target histogram through K1 against the plain version, and the
+    # card's recolor against the CPU's
+    x = torch.from_numpy(load_rgb(tgt)[None]).to(dev)
+    with torch.inference_mode():
+        hist_path = hist_block(x)
+        packed = histogram_cuda.pack_pixels(
+            resize_if_needed(x.clamp(0, 1), 150, 64, "sampling").reshape(1, -1, 3)).contiguous()
+        hist_plain = normalise(histogram_cuda.hist_core_reference(packed, INV_SIGMA2))
+    herr = (hist_path - hist_plain).abs().max().item()
+    check(herr <= KERNEL_TOL_ABS, f"recolor target histogram max|kernel-plain| {herr:.3e}")
+    noise = torch.from_numpy(np.random.default_rng(16).random((2, 256, 256, 1),
+                                                              dtype=np.float32))
+    pair = torch.from_numpy(np.concatenate([img256, imgs16[:1]])).permute(0, 3, 1, 2)
+    hists = torch.from_numpy(np.concatenate([h1, hists16[:1]]))
+    raw = {}
+    for name, t in (("card", model), ("cpu", src)):
+        with torch.inference_mode():
+            raw[name] = recolor_forward(RecolorModels(t.ED, t.H, t.G, None), pair.to(t.device),
+                                        hists.to(t.device), noise.to(t.device), t.cfg).cpu()
+    exact_model = copy.deepcopy(RecolorModels(model.ED, model.H, model.G, None))
+    with torch.inference_mode():
+        exact = recolor_forward(RecolorModels(*(m.double() for m in exact_model[:3]), None),
+                                pair.to(dev, torch.float64), hists.to(dev, torch.float64),
+                                noise.to(dev, torch.float64), model.cfg).cpu()
+    del exact_model
+    scale = raw["cpu"].abs().max().item()
+    rerr = (raw["card"] - raw["cpu"]).abs().max().item()
+    card_exact, cpu_exact = ((raw[k].double() - exact).abs().max().item() for k in ("card", "cpu"))
+    clipped = (raw["card"].clamp(0, 1) - raw["cpu"].clamp(0, 1)).abs().max().item()
+    inside = ((raw["cpu"] > 0) & (raw["cpu"] < 1)).double().mean().item()
+    check(rerr <= RECOLOR_TOL_REL * scale,
+          f"card vs CPU recolor max|d| {rerr:.3e} <= {RECOLOR_TOL_REL} x {scale:.3e}")
+    print(f"recolor: target histogram max|kernel-plain| {herr:.3e}; 2 recolors at "
+          f"{cfg['image_size']} px, card vs CPU max|d| {rerr:.3e} before the clip to [0, 1], "
+          f"{rerr / scale:.3e} of its largest entry {scale:.3e} (tolerance {RECOLOR_TOL_REL}); "
+          f"after the clip {clipped:.3e}, with {inside:.4f} of the outputs inside (0, 1); "
+          f"against a float64 recolor on the card: card {card_exact:.3e}, CPU {cpu_exact:.3e}")
+    del model, src
+    torch.cuda.empty_cache()
+    return counts
+
+
+def rehisto_steps_run(t, tag: str, n: int, histogram_cuda=None):
+    """Steps 0..n-1 of ``t``; returns (ms per step, per-step K1 and K2
+    launches)."""
+    step_ms, per_step = [], []
+    for step in range(n):
+        k1, k2 = (histogram_cuda.launches, histogram_cuda.bwd_launches) if histogram_cuda \
+            else (0, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = t.train(**REHISTO_HYPER)
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        if histogram_cuda:
+            per_step.append((histogram_cuda.launches - k1, histogram_cuda.bwd_launches - k2))
+        flags = [name for name, on in (("GP", step % 4 == 0),
+                                       ("save+evaluate", step == 0)) if on]
+        print(f"{tag}: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
+              + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+        check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
+    return step_ms, per_step
+
+
+def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path]):
+    """R2: recoloring training at batch 2 x accumulation 8, then the rate at
+    batch 16 x accumulation 1. Returns ({kernel: launches in the 10
+    steps}, imgs/s)."""
+    from histogan_tpu_torch.train import rehisto_steps
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    tag = "rehisto train"
+    work = WORK / "rehisto_train"
+    write_images(work / "data")
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
+               save_every=1000)
+    imgs_per_step = cfg["batch_size"] * cfg["gradient_accumulate_every"]
+    t = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
+    t.init_GAN()
+    before = {k: v.detach().clone() for k, v in t.reference_state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(histogram_cuda)
+    t0 = time.perf_counter()
+    t.set_data_src(str(work / "data"), sampling=True)
+    pool_s, pool_launches = time.perf_counter() - t0, histogram_cuda.launches
+    reset_counts(histogram_cuda)
+    step_ms, per_step = rehisto_steps_run(t, tag, 10, histogram_cuda)
+    counts = {"histogram_fwd": histogram_cuda.launches,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    peak = torch.cuda.max_memory_allocated()
+    accum = cfg["gradient_accumulate_every"]
+    # per micro-batch: K1 on G's output and on the hist-of-hist, K2 on G's output
+    check(all(p == (2 * accum, accum) for p in per_step),
+          f"K1 and K2 launched {2 * accum} and {accum} times a step: {per_step}")
+    after = t.reference_state_dict()
+    for prefix in ("ED", "H", "G", "D"):
+        keys = [k for k in after if k.split(".")[0] == prefix]
+        check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
+    del before
+    rate = 3 * imgs_per_step / (sum(step_ms[5:8]) / 1e3)
+    print(f"{tag}: pool of 64 images in {pool_s:.2f} s (K1 launches {pool_launches}); steps "
+          f"5-7 (plain) {step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} "
+          f"imgs/s (batch 2 x accumulation {accum}, fp32); GP steps 4 and 8 "
+          f"{step_ms[4]:.2f}/{step_ms[8]:.2f} ms; peak {peak} bytes; launches per step "
+          f"K1 {per_step[0][0]}, K2 {per_step[0][1]}; in the 10 steps {counts} on {smi}")
+
+    if profile is not None:
+        batch = t._device_batch(next(t.loader))
+
+        def step(gp):
+            return lambda: rehisto_steps.train_step(
+                t.state, batch, rehisto_steps.draw_step(t.gen, t.cfg, t.device), t.cfg, gp,
+                **REHISTO_HYPER)
+
+        profile_fns({"plain": step(False), "gp": step(True)}, profile, "rehisto_")
+
+    t.save(1)
+    opt_steps = t.state.step
+    t.close()
+    del t
+    torch.cuda.empty_cache()
+    r = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
+    check(r.load(-1) == 0, "a checkpoint to load")
+    check(r.state.step == opt_steps and r.steps == cfg["save_every"],
+          f"step counters carried over ({r.state.step}, {r.steps})")
+    r.set_data_src(str(work / "data"), sampling=True)
+    m = r.train(**REHISTO_HYPER)
+    r.close()
+    check(all(math.isfinite(v) for v in m.values()) and r.state.step == opt_steps + 1,
+          "one finite step after the resume")
+    print(f"{tag}: saved at step {opt_steps}, loaded, one more step: "
+          + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
+    del r
+    torch.cuda.empty_cache()
+
+    # bench.py's reHistoGAN configuration: batch 16 x accumulation 1
+    cfg16 = dict(cfg, batch_size=16, gradient_accumulate_every=1)
+    t = RecoloringTrainer("rt16", work / "results", work / "models", device=CARD, **cfg16)
+    t.init_GAN()
+    t.set_data_src(str(work / "data"), sampling=True)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms16, _ = rehisto_steps_run(t, "rehisto train b16", 8)
+    t.close()
+    rate16 = 3 * 16 / (sum(step_ms16[5:8]) / 1e3)
+    print(f"rehisto train b16: steps 5-7 (plain) {step_ms16[5]:.2f}/{step_ms16[6]:.2f}/"
+          f"{step_ms16[7]:.2f} ms = {rate16:.2f} imgs/s (batch 16 x accumulation 1, fp32); "
+          f"GP step 4 {step_ms16[4]:.2f} ms; peak {torch.cuda.max_memory_allocated()} bytes")
+    del t
+    torch.cuda.empty_cache()
+    return counts, rate
+
+
+def rehisto_exact_grads(cfg, batch, draws, apply_gp, work) -> dict:
+    """The recoloring step in float64 on the card (the histograms stay
+    fp32): {reference name: the applied gradient, on the CPU}."""
+    from histogan_tpu_torch.train import rehisto_steps
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    t = RecoloringTrainer("cmp", work / "f64" / "r", work / "f64" / "m", device=CARD, **cfg)
+    t.init_GAN()
+    for m in t.models().values():
+        m.double()
+    b = {k: (v.double() / 255.0 if v.dtype == torch.uint8 else v.double()).to(t.device)
+         for k, v in batch.items()}
+    d = rehisto_steps.ReHistoDraws([x.to(t.device, torch.float64) for x in draws.d],
+                                   [x.to(t.device, torch.float64) for x in draws.g])
+    rehisto_steps.train_step(t.state, b, d, t.cfg, apply_gp, **REHISTO_HYPER)
+    return {k: g.detach().cpu() for k, (_, g) in applied_grads(t, ("ED", "H", "G", "D")).items()}
+
+
+def phase_rehisto_card_vs_cpu() -> None:
+    """R3: the recoloring step-0 step at full width, batch 2, accumulation
+    1, on the card and the CPU from the same weights, batch and noise; with
+    the GP, then without. Its gradients reach 8e-2 of a tensor's largest
+    entry card vs CPU, so a float64 run on the card says which side the
+    gap is on (``compare_card_cpu_step``)."""
+    from histogan_tpu_torch.train import rehisto_steps
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    work = WORK / "rehisto_card_vs_cpu"
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=1, seed=3)
+    size = cfg["image_size"]
+    rng = np.random.default_rng(17)
+    hists = rng.random((2, 1, 2, 3, 64, 64), dtype=np.float32)
+    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
+    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
+                                                       dtype=np.uint8)),
+             "g_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
+                                                       dtype=np.uint8)),
+             "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
+    for apply_gp in (True, False):
+        tr = {name: RecoloringTrainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
+              for name, d in (("card", CARD), ("cpu", "cpu"))}
+        draws = rehisto_steps.draw_step(torch.Generator().manual_seed(8), tr["cpu"].cfg, "cpu")
+        names = ("d_loss", "g_loss", "h_loss", "r_loss", "var_loss") \
+            + (("gp_loss",) if apply_gp else ())
+        exact = rehisto_exact_grads(cfg, batch, draws, apply_gp, work)
+        compare_card_cpu_step(
+            tr, lambda t: rehisto_steps.train_step(
+                t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
+                apply_gp, **REHISTO_HYPER),
+            names, ("ED", "H", "G", "D"),
+            f"reHistoGAN step 0 ({'GP' if apply_gp else 'plain'}) {size} px batch 2", exact)
+        del exact
+        del tr
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -813,8 +1261,16 @@ def main(argv=None) -> int:
     timed("7", phase_loss_gradient, dev)
     counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
+    # the timed reHistoGAN phases before the comparisons that run steps on the CPU
+    counts_recolor = timed("R1", phase_recolor, histogram_cuda, dev, smi)
+    counts_re, _ = timed("R2", phase_rehisto_train, histogram_cuda, smi, profile)
     timed("9", phase_card_vs_cpu)
     timed("9b", phase_bf16_step)
+    timed("R3", phase_rehisto_card_vs_cpu)
+    check(counts_recolor["histogram_fwd"] >= 1 and counts_re["histogram_fwd"] >= 1
+          and counts_re["histogram_bwd"] >= 1,
+          f"K1 on the recolor path ({counts_recolor}), K1 and K2 on the recoloring "
+          f"training path ({counts_re})")
     shutil.rmtree(WORK, ignore_errors=True)
 
     def main_row(rows):  # the training path's shape
@@ -828,7 +1284,9 @@ def main(argv=None) -> int:
          "replaces": "histogan_tpu/ops/histogram_pallas.py:39",
          "launches": counts["histogram_fwd"],
          "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"],
-                              "training_bf16": counts_bf16["histogram_fwd"]},
+                              "training_bf16": counts_bf16["histogram_fwd"],
+                              "recolor": counts_recolor["histogram_fwd"],
+                              "rehisto_training": counts_re["histogram_fwd"]},
          "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
          "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
@@ -836,7 +1294,9 @@ def main(argv=None) -> int:
          "replaces": "histogan_tpu/ops/histogram_pallas.py:64",
          "launches": counts["histogram_bwd"],
          "launches_by_path": {"training": counts["histogram_bwd"],
-                              "training_bf16": counts_bf16["histogram_bwd"]},
+                              "training_bf16": counts_bf16["histogram_bwd"],
+                              "recolor": counts_recolor["histogram_bwd"],
+                              "rehisto_training": counts_re["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
          "shapes": bwd_rows},
     ]}))

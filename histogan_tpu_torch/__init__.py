@@ -1,7 +1,8 @@
 """PyTorch/CUDA port of histogan_tpu for NVIDIA Hopper GPUs.
 
-This slice covers sampling (``histogan-torch --generate True``). The
-package imports torch and never jax or histogan_tpu; its kernels are
-built at first use, so importing it compiles nothing. Import the
-submodules directly (``histogan_tpu_torch.train.trainer`` and so on).
+It covers HistoGAN sampling and training (``histogan-torch``) and
+reHistoGAN recoloring and training (``rehistogan-torch``). The package
+imports torch and never jax or histogan_tpu; its kernels are built at
+first use, so importing it compiles nothing. Import the submodules
+directly (``histogan_tpu_torch.train.trainer`` and so on).
 """

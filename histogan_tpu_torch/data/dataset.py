@@ -281,14 +281,24 @@ class TrainLoader:
     the images, histoGAN/histoGAN.py:936-940; their decode is skipped).
     Images travel as uint8 and are dequantised on the device
     (``steps.dequantize_images``), four times fewer bytes to the device.
+
+    reHistoGAN's options (``histogan_tpu/data/dataset.py`` TrainLoader):
+    ``include_g_images`` gives G's batches images of their own
+    ('g_images', drawn after the D half), and ``self_hist`` takes each
+    image's own histogram as its target in place of a pool interpolation
+    (the recoloring trainer's ``sampling=False``). With both off the
+    batches and the draws are the HistoGAN trainer's.
     """
 
     def __init__(self, dataset: ImageFolderDataset, pool: HistogramPool,
-                 batch_size: int, accum: int, seed: int = 0, prefetch: int = 2):
+                 batch_size: int, accum: int, seed: int = 0, prefetch: int = 2,
+                 self_hist: bool = False, include_g_images: bool = False):
         self.dataset = dataset
         self.pool = pool
         self.batch_size = batch_size
         self.accum = accum
+        self.self_hist = self_hist
+        self.include_g_images = include_g_images
         self._rng = np.random.default_rng(seed)
         self._q: queue_mod.Queue = queue_mod.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -298,13 +308,24 @@ class TrainLoader:
     def _make_batch(self) -> Dict[str, np.ndarray]:
         a, b = self.accum, self.batch_size
         rng = self._rng
-        idx = rng.integers(0, len(self.dataset), size=a * b)
-        imgs = np.stack([self.dataset.get_image_u8(int(i), rng) for i in idx])
-        hist_shape = (a, b, *self.pool.pool.shape[1:])
-        d_hists = self.pool.sample_interpolated(rng, a * b).reshape(hist_shape)
-        g_hists = self.pool.sample_interpolated(rng, a * b).reshape(hist_shape)
-        return {"d_images": imgs.reshape(a, b, *imgs.shape[1:]), "d_hists": d_hists,
-                "g_hists": g_hists}
+
+        def images_and_hists():
+            idx = rng.integers(0, len(self.dataset), size=a * b)
+            imgs = np.stack([self.dataset.get_image_u8(int(i), rng) for i in idx])
+            return imgs.reshape(a, b, *imgs.shape[1:]), hists(idx)
+
+        def hists(idx):
+            h = (self.pool.self_hist(idx) if self.self_hist
+                 else self.pool.sample_interpolated(rng, a * b))
+            return h.reshape(a, b, *self.pool.pool.shape[1:])
+
+        batch = dict(zip(("d_images", "d_hists"), images_and_hists()))
+        if self.include_g_images:
+            batch["g_images"], batch["g_hists"] = images_and_hists()
+        else:
+            batch["g_hists"] = self.pool.sample_interpolated(rng, a * b).reshape(
+                a, b, *self.pool.pool.shape[1:])
+        return batch
 
     def _worker(self):
         while not self._stop.is_set():

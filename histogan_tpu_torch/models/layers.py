@@ -47,3 +47,16 @@ class TorchConv(nn.Conv2d):
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         inits.kaiming_normal_(self.weight, generator)
         inits.torch_default_bias_(self.bias, self.weight[0].numel(), generator)
+
+
+class InstanceNorm(nn.Module):
+    """nn.InstanceNorm2d with torch's defaults: no affine parameters, no
+    running statistics, biased variance over H and W, eps 1e-5 (the
+    reHistoGAN EncoderBlock's, reference rehistoGAN.py:490-495). NCHW."""
+
+    def __init__(self, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x, eps=self.eps)

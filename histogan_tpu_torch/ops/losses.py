@@ -1,7 +1,7 @@
-"""Loss functions for HistoGAN training, the counterpart of
-``histogan_tpu/ops/losses.py`` (reference histoGAN/histoGAN.py:54,
-156-163, 913, 955-975). The reconstruction and variance losses of
-reHistoGAN are ported with reHistoGAN.
+"""Loss functions for HistoGAN and reHistoGAN training, the counterpart
+of ``histogan_tpu/ops/losses.py`` (reference histoGAN/histoGAN.py:54,
+156-163, 913, 955-975; rehistoGAN.py:303-326, 1019-1028). Images are
+NCHW.
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from typing import Callable, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from histogan_tpu_torch.ops import filters
 
 SCALE = 1.0 / np.sqrt(2.0)  # reference histoGAN/histoGAN.py:54
 
@@ -70,3 +72,44 @@ def path_length_penalty(pl_lengths: torch.Tensor, pl_mean: torch.Tensor) -> torc
     reference (histoGAN/histoGAN.py:973-975)."""
     loss = torch.mean(torch.square(pl_lengths - pl_mean))
     return torch.where(torch.isnan(loss), torch.zeros_like(loss), loss)
+
+
+def reconstruction_loss(input_img: torch.Tensor, target_img: torch.Tensor,
+                        variant: str = "2nd gradient") -> torch.Tensor:
+    """The reHistoGAN reconstruction term (rehistoGAN.py:303-326):
+    'L1', '1st gradient' (L1 of the Sobel magnitudes) or '2nd gradient'
+    (L1 of the Laplacians)."""
+    if variant == "L1":
+        return torch.mean(torch.abs(input_img - target_img))
+    if variant == "1st gradient":
+        def magnitude(x):
+            return torch.sqrt(torch.square(filters.sobel_op(x, 0))
+                              + torch.square(filters.sobel_op(x, 1)))
+
+        return torch.mean(torch.abs(magnitude(input_img) - magnitude(target_img)))
+    if variant == "2nd gradient":
+        return torch.mean(torch.abs(filters.laplacian_op(input_img)
+                                    - filters.laplacian_op(target_img)))
+    raise ValueError(f"unknown reconstruction loss variant {variant!r}")
+
+
+def variance_loss(hist_batch: torch.Tensor, input_hist_of_hist: torch.Tensor,
+                  input_images: torch.Tensor, generated_images: torch.Tensor,
+                  gauss_kernel: torch.Tensor, beta: float) -> torch.Tensor:
+    """The reHistoGAN variance term (rehistoGAN.py:1019-1028):
+
+        -(beta / 10) * sum|h_t - H(relu(h_t))|
+                     * mean|std(std(blur(x_in), H), W) - the same of x_gen|
+
+    The reference feeds the histogram TENSOR back through a histogram
+    block as an image (rehistoGAN.py:1020); the caller passes that
+    hist-of-hist as ``input_hist_of_hist``. ``torch.std`` is unbiased
+    (correction 1), over H and then over W, leaving (B, C)."""
+    def std2(x):
+        return torch.std(torch.std(x, dim=2, correction=1), dim=2, correction=1)
+
+    blur_in = filters.gaussian_op(input_images, gauss_kernel)
+    blur_gen = filters.gaussian_op(generated_images, gauss_kernel)
+    color_term = torch.sum(torch.abs(hist_batch - input_hist_of_hist))
+    structure_term = torch.mean(torch.abs(std2(blur_in) - std2(blur_gen)))
+    return -1.0 * (beta / 10.0) * color_term * structure_term

@@ -10,6 +10,11 @@ state-dict names and shapes (histoGAN/histoGAN.py:634-715): Linear
 - the JAX package's parameter trees (nested dicts of arrays, NHWC/HWIO)
   become that layout through ``state_dict_from_jax``, which re-states
   ``histogan_tpu/train/convert.py``'s ``export_*`` without importing it.
+
+reHistoGAN's checkpoints hold the prefixes ED, H, G and D
+(rehistoGAN.py:637-718; no EMA): ``rehisto_state_dict_from_jax`` is the
+bridge for them, and ``detect_rehistogan_variant`` reads the two
+architecture flags that the reference does not persist from the keys.
 """
 
 from __future__ import annotations
@@ -21,6 +26,8 @@ import torch
 
 # the reference state dict's prefixes (histoGAN/histoGAN.py:634-715)
 PREFIXES = ("S", "H", "G", "D", "SE", "HE", "GE")
+# reHistoGAN's (rehistoGAN.py:637-718)
+REHISTO_PREFIXES = ("ED", "H", "G", "D")
 
 
 def _np(x) -> np.ndarray:
@@ -116,16 +123,73 @@ def state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
     return {k: torch.tensor(v) for k, v in out.items()}
 
 
+def encoder_block_state(tree: Mapping, prefix: str, out: Dict) -> None:
+    """``net0``/``net1``/``down`` become ``net.0``/``net.3``/``downsample``
+    (the InstanceNorms and LeakyReLUs between hold no parameters)."""
+    _conv(tree["conv_res"], f"{prefix}.conv_res", out)
+    _conv(tree["net0"], f"{prefix}.net.0", out)
+    _conv(tree["net1"], f"{prefix}.net.3", out)
+    _conv(tree["down"], f"{prefix}.downsample", out)
+
+
+def decoder_block_state(tree: Mapping, prefix: str, out: Dict) -> None:
+    for name in ("block1", "block2", "conv_out_latent"):
+        _conv(tree[name], f"{prefix}.{name}.0", out)
+    _conv(tree["conv_res"], f"{prefix}.conv_res", out)
+    _conv(tree["conv_out_rgb"], f"{prefix}.conv_out_rgb", out)
+    if "to_latent" in tree:
+        _linear(tree["to_latent"], f"{prefix}.to_latent", out)
+        _conv2dmod(tree["conv_latent"], f"{prefix}.conv_latent", out)
+
+
+def encoder_decoder_state(tree: Mapping, prefix: str, out: Dict) -> None:
+    _conv(tree["mapping"], f"{prefix}.mapping", out)
+    _conv(tree["decoder_mapping"], f"{prefix}.decoder_mapping", out)
+    for i in range(_count(tree, "encoder_{}")):
+        encoder_block_state(tree[f"encoder_{i}"], f"{prefix}.encoder_blocks.{i}", out)
+    for i in range(_count(tree, "decoder_{}")):
+        decoder_block_state(tree[f"decoder_{i}"], f"{prefix}.decoder_blocks.{i}", out)
+    if "hist_projection" in tree:
+        hist_vectorizer_state(tree["hist_projection"], f"{prefix}.hist_projection", out)
+    for name in ("to_latent_1", "to_latent_2"):
+        if name in tree:
+            _linear(tree[name], f"{prefix}.{name}", out)
+    for name in ("conv_latent_1", "conv_latent_2"):
+        if name in tree:
+            _conv2dmod(tree[name], f"{prefix}.{name}", out)
+
+
+def rehisto_state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX recoloring bundle {'params_g': {'ED', 'H', 'G'}, 'params_d'} ->
+    the reference-layout state dict (ED, H, G, D), as
+    ``export_rehistogan_checkpoint`` writes it."""
+    out: Dict[str, np.ndarray] = {}
+    g = bundle["params_g"]
+    encoder_decoder_state(g["ED"], "ED", out)
+    hist_vectorizer_state(g["H"], "H", out)
+    for i in range(_count(g["G"], "blocks_{}")):
+        generator_block_state(g["G"][f"blocks_{i}"], f"G.blocks.{i}", out)
+    discriminator_state(bundle["params_d"], "D", out)
+    return {k: torch.tensor(v) for k, v in out.items()}
+
+
+def detect_rehistogan_variant(sd: Mapping) -> Dict[str, bool]:
+    """skip_conn_to_GAN / internal_hist from a recoloring state dict's keys
+    (the reference persists neither in .config.json)."""
+    return {"skip_conn_to_GAN": "ED.conv_latent_1.weight" in sd,
+            "internal_hist": "ED.decoder_blocks.0.to_latent.weight" in sd}
+
+
 def load_reference_pt(path) -> Dict[str, torch.Tensor]:
     """A reference-layout ``.pt`` (flat ``GAN.state_dict()``) as CPU tensors."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 
-def split_by_prefix(sd: Mapping[str, torch.Tensor]):
-    """-> ({prefix: sub-state-dict} for PREFIXES, sorted keys of every
+def split_by_prefix(sd: Mapping[str, torch.Tensor], prefixes=PREFIXES):
+    """-> ({prefix: sub-state-dict} for ``prefixes``, sorted keys of every
     other prefix)."""
-    parts = {p: {} for p in PREFIXES}
+    parts = {p: {} for p in prefixes}
     others = []
     for key, value in sd.items():
         prefix, _, rest = key.partition(".")

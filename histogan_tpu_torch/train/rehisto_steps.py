@@ -1,0 +1,169 @@
+"""One reHistoGAN (recoloring) training step in PyTorch, the counterpart
+of ``histogan_tpu/train/rehisto_steps.py`` (reference
+rehistoGAN.py:895-1052), in the eager style of ``train/steps.py``, fp32.
+
+A step is a D phase then a G phase, each summing its gradients over
+``gradient_accumulate_every`` micro-batches and dividing by their count
+before one DiffGrad update:
+- D: per micro-batch a no-grad recolor of ``d_images`` toward
+  ``d_hists``, then the hinge loss of ``steps.d_loss`` against the real
+  ``d_images``, with the gradient penalty on the flagged steps (every 4th);
+- G, against the updated D: gamma * mean(D(fake)) + the Hellinger loss of
+  ``hist(relu(fake))`` (alpha) + beta * the reconstruction loss against
+  ``g_images`` + the variance loss. The variance loss keeps the
+  reference's hist-of-hist: relu(target histogram) is read as an image
+  and goes back through ``histogram_feature`` (rehistoGAN.py:1020).
+  With ``fixed_gan_weights`` only ED learns: H and G get zero gradients,
+  which still go through DiffGrad (rehistoGAN.py:671-676).
+
+No EMA, path length or style mixing: the reference recoloringTrainer has
+none. As in ``train/steps.py`` the draws are inputs (:class:`ReHistoDraws`,
+one (B, S, S, 1) uniform noise per micro-batch of each phase), so the
+tests can feed the JAX step's own.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, NamedTuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from histogan_tpu_torch.ops import filters, losses
+from histogan_tpu_torch.ops.histogram import histogram_feature
+from histogan_tpu_torch.train.state import ReHistoGANState
+from histogan_tpu_torch.train.steps import (
+    _accumulate, _update, d_loss, dequantize_images, to_nchw)
+
+GAUSS_SIZE, GAUSS_SIGMA = 15, 5.0  # the variance loss's blur (rehisto_steps.py:85)
+
+
+class RecolorModels(NamedTuple):
+    ED: nn.Module
+    H: nn.Module
+    G: nn.Module
+    D: nn.Module
+
+
+@dataclasses.dataclass
+class ReHistoDraws:
+    """(B, S, S, 1) U[0, 1) noise for each micro-batch of each phase."""
+
+    d: List[torch.Tensor]
+    g: List[torch.Tensor]
+
+
+def draw_step(gen: torch.Generator, cfg, device) -> ReHistoDraws:
+    shape = (cfg.batch_size, cfg.image_size, cfg.image_size, 1)
+    accum = cfg.gradient_accumulate_every
+    d = [torch.rand(shape, generator=gen, device=device) for _ in range(accum)]
+    g = [torch.rand(shape, generator=gen, device=device) for _ in range(accum)]
+    return ReHistoDraws(d, g)
+
+
+def recolor_forward(models: RecolorModels, image_batch: torch.Tensor,
+                    hist_batch: torch.Tensor, noise: torch.Tensor, cfg) -> torch.Tensor:
+    """The four-way ED/G dispatch (rehistoGAN.py:938-956): ED reads the
+    histogram, or under ``internal_hist`` its projection H(hist); G gets
+    ED's latent and rgb, H(hist) as the style of both blocks, the noise,
+    and with ``skip_conn_to_GAN`` ED's two skip latents. NCHW images in
+    and out; ``noise`` is (B, S, S, 1)."""
+    h_w = models.H(hist_batch)
+    out = models.ED(image_batch, h_w if cfg.internal_hist else hist_batch)
+    return models.G(out[0], out[1], h_w, noise, *out[2:])
+
+
+def rec_variant(rec_loss) -> str:
+    """The CLI's ``--rec_loss`` as ``losses.reconstruction_loss``'s variant
+    (rehisto_steps.py:62-69)."""
+    if rec_loss is None:
+        return "L1"
+    if rec_loss == "sobel":
+        return "1st gradient"
+    if rec_loss == "laplacian":
+        return "2nd gradient"
+    raise ValueError(f"Unknown reconstruction loss {rec_loss!r}")
+
+
+def _hist(x_nhwc: torch.Tensor, cfg) -> torch.Tensor:
+    return histogram_feature(x_nhwc, h=cfg.hist_bin, insz=cfg.hist_insz,
+                             resizing=cfg.hist_resizing, method=cfg.hist_method,
+                             sigma=cfg.hist_sigma)
+
+
+def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.Tensor,
+           noise: torch.Tensor, cfg, alpha: float, beta: float, gamma: float,
+           gauss: torch.Tensor):
+    """G loss; returns (loss, adversarial, histogram, reconstruction,
+    variance). ``image_batch`` NCHW."""
+    generated = recolor_forward(models, image_batch, hist_batch, noise, cfg)
+    adv = gamma * torch.mean(models.D(generated))
+    gen_hists = _hist(F.relu(generated).permute(0, 2, 3, 1), cfg)
+    hist = losses.hellinger_histogram_loss(hist_batch, gen_hists, alpha)
+    rec = beta * losses.reconstruction_loss(image_batch, generated, rec_variant(cfg.rec_loss))
+    loss = adv + hist + rec
+    var = torch.zeros_like(loss)
+    if cfg.variance_loss:
+        # the reference's hist-of-hist (rehistoGAN.py:1020)
+        hist_of_hist = _hist(F.relu(hist_batch).permute(0, 2, 3, 1), cfg)
+        var = losses.variance_loss(hist_batch, hist_of_hist, image_batch, generated, gauss,
+                                   beta)
+        loss = loss + var
+    return loss, adv, hist, rec, var
+
+
+def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
+            apply_gp: bool) -> Dict[str, torch.Tensor]:
+    models = RecolorModels(state.ED, state.H, state.G, None)
+    params = list(state.D.parameters())
+    accum = cfg.gradient_accumulate_every
+    grads, divs, gp = None, [], None
+    for a in range(accum):
+        real = to_nchw(dequantize_images(batch["d_images"][a]))
+        with torch.no_grad():
+            fake = recolor_forward(models, real, batch["d_hists"][a], draws.d[a], cfg)
+        loss, div, gp = d_loss(state.D, fake, real, apply_gp, real.dtype)
+        grads = _accumulate(grads, torch.autograd.grad(loss, params))
+        divs.append(div.detach())
+    _update(state.opt_d, params, grads, accum)
+    return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.zeros_like(divs[0]),
+            "gp_loss": gp.detach()}
+
+
+def g_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
+            alpha: float, beta: float, gamma: float) -> Dict[str, torch.Tensor]:
+    models = RecolorModels(state.ED, state.H, state.G, state.D)
+    params = state.g_params()
+    # with fixed_gan_weights only ED's gradient is taken; H and G get zeros
+    trainable = list(state.ED.parameters()) if cfg.fixed_gan_weights else params
+    gauss = filters.gaussian_kernel(GAUSS_SIZE, GAUSS_SIGMA).to(params[0].device)
+    accum = cfg.gradient_accumulate_every
+    grads, terms = None, []
+    for a in range(accum):
+        image_batch = to_nchw(dequantize_images(batch["g_images"][a]))
+        loss, *parts = g_loss(models, image_batch, batch["g_hists"][a], draws.g[a], cfg,
+                              alpha, beta, gamma, gauss)
+        # ED's rgb output reaches no loss (G discards it), so its conv_out_rgb
+        # gets a zero gradient, as in the JAX step
+        grads = _accumulate(grads, torch.autograd.grad(loss, trainable, allow_unused=True,
+                                                       materialize_grads=True))
+        terms.append(torch.stack([p.detach() for p in parts]))
+    grads = grads + [torch.zeros_like(p) for p in params[len(trainable):]]
+    _update(state.opt_g, params, grads, accum)
+    means = torch.stack(terms).mean(dim=0)
+    return dict(zip(("g_loss", "h_loss", "r_loss", "var_loss"), means))
+
+
+def train_step(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws,
+               cfg, apply_gp: bool, alpha: float, beta: float,
+               gamma: float) -> Dict[str, torch.Tensor]:
+    """One D phase, then one G phase against the updated D. ``batch``:
+    {'d_images', 'g_images': (A, B, S, S, C) uint8 or float NHWC,
+    'd_hists', 'g_hists': (A, B, 3, h, h)}, on the state's device.
+    Returns the step's metrics as 0-d tensors (no host sync)."""
+    metrics = d_phase(state, batch, draws, cfg, apply_gp)
+    metrics.update(g_phase(state, batch, draws, cfg, alpha, beta, gamma))
+    state.step += 1
+    return metrics

@@ -85,3 +85,32 @@ class HistoGANState:
             torch._foreach_mul_(e32, beta)
             torch._foreach_add_(e32, p, alpha=1.0 - beta)
             torch._foreach_copy_(e, stochastic_round_list(e32, self.ema_gen))
+
+
+@dataclasses.dataclass
+class ReHistoGANState:
+    """The recoloring trainer's state (``histogan_tpu/train/state.py``
+    ReHistoGANState): the encoder-decoder ED, the histogram projection H,
+    the GAN head G and D, a DiffGrad for ED/H/G and one for D, and the
+    step. No EMA and no path-length mean (the reference recoloringTrainer
+    keeps neither)."""
+
+    ED: nn.Module
+    H: nn.Module
+    G: nn.Module
+    D: nn.Module
+    opt_g: DiffGrad
+    opt_d: DiffGrad
+    step: int = 0
+
+    def modules(self) -> Dict[str, nn.Module]:
+        return {k: getattr(self, k) for k in ("ED", "H", "G", "D")}
+
+    def g_params(self) -> List[torch.Tensor]:
+        """The generator side's parameters, ED then H then G (params_g)."""
+        return [p for k in ("ED", "H", "G") for p in getattr(self, k).parameters()]
+
+    def reference_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The weights in the flat reference layout (ED, H, G, D)."""
+        return {f"{prefix}.{k}": v for prefix, m in self.modules().items()
+                for k, v in m.state_dict().items()}

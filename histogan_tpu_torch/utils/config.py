@@ -85,3 +85,22 @@ class HistoGANConfig:
             "attn_layers": tuple(cfg.get("attn_layers", [])),
         }
         return dataclasses.replace(self, **changes)
+
+
+@dataclasses.dataclass
+class ReHistoGANConfig(HistoGANConfig):
+    """The recoloring fields over HistoGANConfig (copied from
+    ``histogan_tpu/utils/config.py``; reference rehistoGAN.py:721-733)."""
+
+    rec_loss: str = "laplacian"  # None -> 'L1', 'sobel', 'laplacian'
+    variance_loss: bool = True
+    internal_hist: bool = False
+    skip_conn_to_GAN: bool = False
+    fixed_gan_weights: bool = False
+    initialize_gan: bool = False
+    change_hyperparameters: bool = False
+    change_hyperparameters_after: int = 100000
+    alpha: float = 32.0
+    beta: float = 1.5
+    gamma: float = 4.0
+    hist_sampling: bool = True

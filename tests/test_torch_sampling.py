@@ -208,4 +208,6 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     training = {"models.discriminator", "ops.losses", "optim.diffgrad", "train.steps",
                 "train.state", "train.checkpoint", "train.trainer", "data.dataset",
                 "utils.logging", "cli.histogan"}
-    assert {f"histogan_tpu_torch.{m}" for m in training} <= loaded
+    rehisto = {"models.rehisto", "ops.filters", "train.rehisto_steps", "train.rehisto_trainer",
+               "cli.rehistogan"}
+    assert {f"histogan_tpu_torch.{m}" for m in training | rehisto} <= loaded
