@@ -50,11 +50,30 @@ Phases, each printing its lines:
      load into a new trainer and one more step; K1 and K2 launches per
      step; the rate at batch 16 x accumulation 1 as well;
   R3. card vs CPU: the recoloring step-0 step at full width, batch 2,
-     with and without the GP, in phase 9's gate forms.
-R1 and R2 run after phase 8b, before the phases that run steps on the
-CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes too: (1, 64^2), a
-recolor target; (2, 64^2), the loss; and K1 at (2, 64^2) on the
-hist-of-hist input, a histogram read as an image.
+     with and without the GP, in phase 9's gate forms;
+  R1b. the recolor under --precision bf16 through train_from_folder, its ms
+     per photo, and the bf16 recolor held to the fp32 one on the card;
+  R4. full-resolution output: train_from_folder(generate=True) with
+     --upsampling_output True --upsampling_method BGU on a 384x512 photo,
+     then the CLI's process_image on that photo and a 200x180 one with the
+     pyramid, BGU on the scipy and on the native backend, downscaling, and
+     --post_recoloring, on a card and a CPU trainer whose recolors take one
+     noise; each card file at the size JAX's evaluate writes, each mode's
+     final image from the card's recolor held to the CPU's; each mode's
+     seconds beside process_image's without post-processing;
+  H1. the pool CLIs: histogan-create-hist-data-torch on 8 photos (K1 8
+     times at (1, 250^2)) and histogan-create-hist-sample-torch on one (K1
+     once at (1, 150^2)), each held to the same command with --device cpu;
+  R2b. R2's 10 + 1 steps under precision and opt_state_dtype 'bf16', the
+     dtypes checked across the save and load, imgs/s beside R2's;
+  R3b. the recoloring step-0 step under bf16 against fp32 on the card (256
+     px) and against bf16 on the CPU (BF16_CPU_SIZE px), in phase 9b's
+     gates (each loss, each tensor's gradient cosine).
+R1, R1b, R4, H1, R2 and R2b run after phase 8b, before the phases that run
+steps on the CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
+too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
+the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
+a pool entry.
 Then one JSON line with the kernels, and last the result line. Any failed
 check raises, so the script exits non-zero and prints no result.
 """
@@ -62,10 +81,13 @@ check raises, so the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -135,7 +157,8 @@ BF16 = dict(precision="bf16", opt_state_dtype="bf16", ema_dtype="bf16")
 # "hist_of_hist", a histogram read as a 64x64 image (reHistoGAN's variance
 # loss), whose pixels are ~1e-4: held by the relative gates alone
 SHAPES = [(1, 150 * 150, "pixels"), (16, 64 * 64, "pixels"), (8, 250 * 250, "pixels"),
-          (1, 64 * 64, "pixels"), (2, 64 * 64, "pixels"), (2, 64 * 64, "hist_of_hist")]
+          (1, 250 * 250, "pixels"), (1, 64 * 64, "pixels"), (2, 64 * 64, "pixels"),
+          (2, 64 * 64, "hist_of_hist")]
 BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097), (2, 64 * 64)]  # (B, N) of packed, K2
 MAIN_SHAPE = (16, 64 * 64)  # both kernels on the training path: the loss's histograms
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
@@ -145,6 +168,48 @@ REHISTO = dict(FLAGSHIP, skip_conn_to_GAN=True, variance_loss=True, rec_loss="la
                internal_hist=False, hist_bin=64, hist_insz=150, hist_resizing="sampling")
 REHISTO_HYPER = dict(alpha=32.0, beta=1.5, gamma=2.0)
 REHISTO_ACCUM = 8
+REHISTO_PARTS = ("ED", "H", "G", "D")
+REHISTO_BF16 = dict(precision="bf16", opt_state_dtype="bf16")
+# R1b: the bf16 recolor against the fp32 one on the card, relative to the
+# largest pre-clip entry. bf16 keeps 8 bits (a relative spacing of 3.9e-3)
+# and rounds after every layer; on the CPU at 32 px JAX's own bf16 recolor
+# lies 1.5e-2 of the largest entry from its fp32 one
+# (tests/test_torch_rehisto_bf16.py). Measured at 256 px, seeded weights
+# (outputs to ~830): 3.332e-2 (NVIDIA H100 80GB HBM3, 700 W).
+RECOLOR_BF16_TOL_REL = 5e-2
+# R4: evaluate's file: save_image_grid's 2 px border on each side, and
+# rehistogan's default --pyramid_levels
+GRID_BORDER = 4
+R4_PYRAMID_LEVELS = 6
+# R4: the post-processed image from the card's recolor against the one from
+# the CPU's recolor (the same weights and noise), as a multiple of the two
+# recolors' gap after the clip (R1's measure): the pyramid swaps in the
+# recolor's coarse level through bicubic resizing and pyrUp (max-norm gain
+# about 1.3), MKL moves the photo by the recolor's mean and a 3x3 map of its
+# covariance, BGU fits an affine grid to it by least squares. Each map is
+# smooth in the recolor; the factor allows several times the largest gain.
+# Measured (NVIDIA H100 80GB HBM3, 700 W): at most 1.00 times (downscaling,
+# whose image is the recolor itself), BGU 0.09, the pyramid and MKL ~0.
+POST_FACTOR = 10.0
+# R3b: the recoloring step-0 step under bf16 against fp32 on the card, in
+# phase 9b's gate forms: each loss relative, each tensor's gradient cosine.
+# Measured at 256 px (NVIDIA H100 80GB HBM3, 700 W): d_loss 1.0e-3, g_loss
+# 1.9e-3, gp_loss 1.4e-3, h_loss 3.9e-3, r_loss 1.156e-1 (the Laplacian of
+# G's bf16 output, which reaches ~800 where bf16's spacing is 4), var_loss
+# 8.0e-3; the worst tensor's gradient cosine 0.9806 (an ED encoder conv),
+# and at 64 px card bf16 against CPU bf16 0.9453 (ED.mapping.bias). As in
+# phase 9b the loss gates allow about 3 times each error; the tensors are
+# held to phase 9b's cosine, about 5 and 1.8 times the worst 1 - cosine.
+REHISTO_BF16_LOSS_RTOL = {"d_loss": 5e-3, "g_loss": 1e-2, "gp_loss": 5e-3, "h_loss": 1.5e-2,
+                          "r_loss": 0.35, "var_loss": 3e-2}
+REHISTO_BF16_GRAD_COS = BF16_GRAD_COS
+# R3b at BF16_CPU_SIZE px, card bf16 against CPU bf16: each gap within its
+# gate above or this many times the gap between the card's bf16 and fp32
+# steps (the rule of tests/test_torch_rehisto_bf16.py). Measured: at most
+# 2.5 times (h_loss 5.2e-3 against bf16's own 2.1e-3).
+NOISE_FACTOR = 3.0
+# H1: the pools, card against CPU: the repo's histogram gate, L1 per histogram
+HIST_L1 = 1e-5
 CARD = "cuda"  # the device under test
 
 
@@ -178,12 +243,16 @@ def device_ms(fn, reps: int = 50) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and "hist_" in e.key]
+    for attempt in range(3):  # a session may come back with no device events at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "hist_" in e.key]
+        if events:
+            break
+        print(f"profiler: session {attempt + 1} recorded no hist_ kernel; profiling again")
     check(bool(events) and all(reps // 2 <= e.count <= reps for e in events),
           f"the profiler saw each hist_ kernel up to {reps} times: "
           f"{[(e.key[:40], e.count) for e in events]}")
@@ -472,14 +541,15 @@ def write_images(folder: Path, n: int = 64) -> None:
                                                                   quality=95)
 
 
-def check_dtypes(t, policy: dict) -> None:
-    """fp32 masters; the EMA and DiffGrad's state in the policy's dtypes."""
+def check_dtypes(t, policy: dict, masters=("S", "H", "G", "D"), emas=("SE", "HE", "GE")) -> None:
+    """fp32 masters; the EMA and DiffGrad's state in the policy's dtypes.
+    reHistoGAN's trainer: masters ED, H, G and D, and no EMA."""
     ema = torch.bfloat16 if policy.get("ema_dtype") == "bf16" else torch.float32
     opt = torch.bfloat16 if policy.get("opt_state_dtype") == "bf16" else torch.float32
     s = t.state
-    check(all(p.dtype == torch.float32 for k in ("S", "H", "G", "D")
-              for p in getattr(s, k).parameters()), "fp32 master weights")
-    check(all(p.dtype == ema for k in ("SE", "HE", "GE") for p in getattr(s, k).parameters()),
+    check(all(p.dtype == torch.float32 for k in masters for p in getattr(s, k).parameters()),
+          "fp32 master weights")
+    check(all(p.dtype == ema for k in emas for p in getattr(s, k).parameters()),
           f"EMA in {ema}")
     states = [st for o in (s.opt_g, s.opt_d) for st in o.state.values()]
     check(bool(states) and all(st[k].dtype == opt for st in states
@@ -611,12 +681,38 @@ def profile_steps(t, out: Path, prefix: str = "") -> None:
                  "gp+pl": step(True, True)}, out, prefix)
 
 
+def trace_device_ms(trace: Path, window: str) -> dict:
+    """Device activity in a Chrome trace, within the host annotation named
+    ``window`` (which ends after a synchronize): the kernels, copies and
+    sets that start inside it, their summed time, the union of their
+    intervals (busy time: what overlaps on several streams counts once),
+    the streams, and the events of that kind outside the window."""
+    events = json.loads(trace.read_text())["traceEvents"]
+    call = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == window)
+    t0_us, t1_us = call["ts"], call["ts"] + call["dur"]
+    device = [e for e in events if e.get("ph") == "X"
+              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    inside = [e for e in device if t0_us <= e["ts"] <= t1_us]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in inside)
+    union, end = 0.0, -math.inf
+    for a, b in spans:
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return {"sum_ms": sum(e["dur"] for e in inside) / 1e3, "busy_ms": union / 1e3,
+            "events": len(inside), "outside": len(device) - len(inside),
+            "streams": len({e.get("args", {}).get("stream") for e in inside})}
+
+
 def profile_fns(fns: dict, out: Path, prefix: str) -> dict:
     """For each {name: step function}: three host-clock runs and one under
-    torch.profiler, whose device time by kernel is printed and whose
-    operator table goes to ``out``. Returns {name: (device ms, busy share)}."""
+    torch.profiler. The device's busy time is the union of the kernel,
+    copy and set intervals of that call in the profiler's trace
+    (``trace_device_ms``); the operator table goes to ``out`` and the
+    kernels with the most device time are printed. Returns {name: (device
+    busy ms, busy share)}."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     out.mkdir(parents=True, exist_ok=True)
     result = {}
@@ -632,25 +728,33 @@ def profile_fns(fns: dict, out: Path, prefix: str) -> dict:
         print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
+            with record_function("profiled_call"):
+                fn()
+                torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = prof.key_averages()
         (out / f"profile_{prefix}{name.replace('+', '_')}.txt").write_text(
             events.table(sort_by="self_device_time_total", row_limit=40))
-        # device-side events only (kernels, copies): the operators' rows and
-        # the device copies of host annotations carry the same time again
+        trace = WORK / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        dev = trace_device_ms(trace, "profiled_call")
+        trace.unlink()
+        # the kernels by name: device-side rows only (the operators' rows
+        # and the device copies of host annotations carry the same time again)
         host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
         kernels = [e for e in events if e.device_type == DeviceType.CUDA
                    and e.key not in host_keys and e.key != "Command Buffer Full"]
-        device_us = sum(e.self_device_time_total for e in kernels)
+        table_ms = sum(e.self_device_time_total for e in kernels) / 1e3
         top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
         hist = [e for e in kernels if "hist_" in e.key]  # K1's two kernels and K2
-        print(f"profile: {prefix}{name} wall {wall_us / 1e3:.2f} ms, device kernels "
-              f"{device_us / 1e3:.2f} ms, busy share {device_us / wall_us:.3f}")
+        print(f"profile: {prefix}{name} wall {wall_us / 1e3:.2f} ms, device busy (union of "
+              f"{dev['events']} kernel/copy intervals on {dev['streams']} streams) "
+              f"{dev['busy_ms']:.2f} ms, busy share {1e3 * dev['busy_ms'] / wall_us:.3f}; their "
+              f"sum {dev['sum_ms']:.2f} ms; {dev['outside']} device events outside the call; "
+              f"key_averages' device sum {table_ms:.2f} ms")
         for e in top + hist:
             print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}")
-        result[name] = (device_us / 1e3, device_us / wall_us)
+        result[name] = (dev["busy_ms"], 1e3 * dev["busy_ms"] / wall_us)
     return result
 
 
@@ -829,57 +933,95 @@ def phase_card_vs_cpu() -> None:
     card_vs_cpu_step(apply_gp=False, apply_pl=True)
 
 
-def bf16_step_run(device: str, precision: str, size: int):
-    """The step-0 step (GP and PL) at capacity 16, latent 512, style depth
-    8, batch 2, ``size`` px, from seed 3's weights and phase 9's batch and
-    draws. The optimizer's state is fp32, so it keeps the gradients as
-    they were applied. Returns (metrics, {name: gradient on the CPU}, s)."""
-    from histogan_tpu_torch.train.steps import train_step
-    from histogan_tpu_torch.train.trainer import Trainer
+def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False):
+    """The step-0 step with the GP at capacity 16, latent 512, style depth
+    8, batch 2, ``size`` px, from seed 3's weights: HistoGAN's (and PL) on
+    phase 9's batch and draws, or with ``rehisto`` the recoloring step on
+    R3's batch and noise. The optimizer's state is fp32, so it keeps the
+    gradients as they were applied. Returns (metrics, {name: gradient on
+    the CPU}, s)."""
+    if rehisto:
+        from histogan_tpu_torch.train import rehisto_steps
+        from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer as trainer
 
-    work = WORK / "bf16_step" / f"{device}_{precision}_{size}"
-    cfg = dict(FLAGSHIP, image_size=size, batch_size=2, gradient_accumulate_every=1,
-               hist_resizing="sampling", seed=3, precision=precision)
-    t = Trainer("cmp", work / "r", work / "m", device=device, **cfg)
+        cfg, prefixes = dict(REHISTO), REHISTO_PARTS
+    else:
+        from histogan_tpu_torch.train.steps import train_step
+        from histogan_tpu_torch.train.trainer import Trainer as trainer
+
+        cfg, prefixes = dict(FLAGSHIP, hist_resizing="sampling"), ("S", "H", "G", "D")
+    work = WORK / ("rehisto_bf16_step" if rehisto else "bf16_step") / f"{device}_{precision}_{size}"
+    t = trainer("cmp", work / "r", work / "m", device=device, image_size=size, batch_size=2,
+                gradient_accumulate_every=1, seed=3, precision=precision,
+                **{k: v for k, v in cfg.items() if k != "image_size"})
     t.init_GAN()
-    batch, draws = step_batch(size, t.cfg)
+    if rehisto:
+        batch = rehisto_step_batch(size)
+        draws = rehisto_steps.draw_step(torch.Generator().manual_seed(8), t.cfg, "cpu")
+    else:
+        batch, draws = step_batch(size, t.cfg)
+    batch, draws = to_device(t.device, batch), to_device(t.device, draws)
     t0 = time.perf_counter()
-    m = train_step(t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
-                   apply_gp=True, apply_pl=True)
+    if rehisto:
+        m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, True, **REHISTO_HYPER)
+    else:
+        m = train_step(t.state, batch, draws, t.cfg, apply_gp=True, apply_pl=True)
     metrics = {k: v.item() for k, v in m.items()}
     secs = time.perf_counter() - t0
-    grads = {k: g.detach().float().cpu() for k, (_, g) in applied_grads(t).items()}
+    grads = {k: g.detach().float().cpu() for k, (_, g) in applied_grads(t, prefixes).items()}
     t.close()
     return metrics, grads, secs
 
 
-def compare_bf16_step(got, want, against: str, size: int) -> None:
-    """Phase 9b's gates: card bf16 (``got``) against ``want``."""
-    (m, g, s), (mw, gw, sw) = got, want
+def bf16_gaps(got, want, loss_keys) -> dict:
+    """Run ``got`` against run ``want`` (each as bf16_step_run returns it):
+    each loss of ``loss_keys`` relative (d_loss and g_loss, means of D's
+    logits, to the larger of the two and 1, since either may sit near 0),
+    each tensor's gradient as 1 - cosine (a bias before an InstanceNorm,
+    whose exact gradient is 0, left out)."""
+    (m, g, _), (mw, gw, _) = got, want
     logit_scale = max(abs(mw["d_loss"]), abs(mw["g_loss"]), 1.0)
-    err = {k: abs(m[k] - mw[k]) / (logit_scale if k in ("d_loss", "g_loss") else abs(mw[k]))
-           for k in BF16_LOSS_RTOL}
-    cos = {}
-    for k, a in g.items():
-        a, b = a.double(), gw[k].double()
-        na, nb = a.norm().item(), b.norm().item()
-        cos[k] = 1.0 if na == nb == 0.0 else (a * b).sum().item() / max(na * nb, 1e-300)
-    worst = sorted(cos, key=cos.get)[:5]
+    gaps = {k: abs(m[k] - mw[k]) / (logit_scale if k in ("d_loss", "g_loss") else abs(mw[k]))
+            for k in loss_keys}
+    for k in g:
+        if not normed_bias(k):
+            a, b = g[k].double(), gw[k].double()
+            na, nb = a.norm().item(), b.norm().item()
+            gaps[k] = 0.0 if na == nb == 0.0 else 1.0 - (a * b).sum().item() / max(na * nb, 1e-300)
+    return gaps
+
+
+def compare_bf16_step(tag: str, got, want, against: str, size: int, loss_rtol: dict,
+                      grad_cos: float, floor: Optional[dict] = None) -> None:
+    """Phase 9b's gates, card bf16 (``got``) against ``want``: each loss
+    within ``loss_rtol`` and each tensor's gradient cosine at least
+    ``grad_cos`` (``bf16_gaps``). With ``floor`` (``bf16_gaps`` of another
+    pair of runs) each gate widens to NOISE_FACTOR times that gap where it
+    is larger."""
+    (m, g, s), (mw, gw, sw) = got, want
+    gaps = bf16_gaps(got, want, loss_rtol)
+    tensors = [k for k in gaps if k not in loss_rtol]
+
+    def gate(k):
+        fixed = loss_rtol[k] if k in loss_rtol else 1.0 - grad_cos
+        return fixed if floor is None else max(fixed, NOISE_FACTOR * floor[k])
+
+    nearest = sorted(tensors, key=lambda k: gaps[k] - gate(k), reverse=True)[:5]
     flat = torch.nn.functional.cosine_similarity(
-        torch.cat([g[k].flatten() for k in g]).double(),
-        torch.cat([gw[k].flatten() for k in g]).double(), dim=0).item()
-    print(f"bf16 step: {size} px batch 2, card bf16 against {against}: "
-          + " ".join(f"{k} {m[k]:.6f}/{mw[k]:.6f} ({err[k]:.3e}, gate {BF16_LOSS_RTOL[k]})"
-                     for k in err)
+        torch.cat([g[k].flatten() for k in tensors]).double(),
+        torch.cat([gw[k].flatten() for k in tensors]).double(), dim=0).item()
+    print(f"{tag}: {size} px batch 2, card bf16 against {against}: "
+          + " ".join(f"{k} {m[k]:.6f}/{mw[k]:.6f} ({gaps[k]:.3e}, gate {gate(k):.3e})"
+                     for k in loss_rtol)
           + f"; gradient cosine, all tensors {flat:.6f}, median tensor "
-          + f"{float(np.median(list(cos.values()))):.6f}, worst tensors "
-          + ", ".join(f"{k} {cos[k]:.6f}" for k in worst)
-          + f" (gate {BF16_GRAD_COS}); {s:.2f} s against {sw:.2f} s")
-    for k, e in err.items():
-        check(math.isfinite(m[k]) and e <= BF16_LOSS_RTOL[k],
-              f"bf16 against {against}: {k} {m[k]:.6f} vs {mw[k]:.6f}")
-    check(all(c >= BF16_GRAD_COS for c in cos.values()),
-          f"bf16 against {against}: every tensor's gradient cosine >= {BF16_GRAD_COS}")
+          + f"{1.0 - float(np.median([gaps[k] for k in tensors])):.6f}, nearest their gates "
+          + ", ".join(f"{k} {1.0 - gaps[k]:.6f} (gate {1.0 - gate(k):.6f})" for k in nearest)
+          + f"; {s:.2f} s against {sw:.2f} s")
+    for k in loss_rtol:
+        check(math.isfinite(m[k]) and gaps[k] <= gate(k),
+              f"{tag} against {against}: {k} {m[k]:.6f} vs {mw[k]:.6f}")
+    check(all(gaps[k] <= gate(k) for k in tensors),
+          f"{tag} against {against}: every tensor's gradient cosine within its gate")
 
 
 def phase_bf16_step() -> None:
@@ -887,11 +1029,13 @@ def phase_bf16_step() -> None:
     against bf16 on the CPU at BF16_CPU_SIZE px."""
     size = FLAGSHIP["image_size"]
     card = bf16_step_run(CARD, "bf16", size)
-    compare_bf16_step(card, bf16_step_run(CARD, "fp32", size), "card fp32", size)
+    compare_bf16_step("bf16 step", card, bf16_step_run(CARD, "fp32", size), "card fp32", size,
+                      BF16_LOSS_RTOL, BF16_GRAD_COS)
     del card
     torch.cuda.empty_cache()
-    compare_bf16_step(bf16_step_run(CARD, "bf16", BF16_CPU_SIZE),
-                      bf16_step_run("cpu", "bf16", BF16_CPU_SIZE), "cpu bf16", BF16_CPU_SIZE)
+    compare_bf16_step("bf16 step", bf16_step_run(CARD, "bf16", BF16_CPU_SIZE),
+                      bf16_step_run("cpu", "bf16", BF16_CPU_SIZE), "cpu bf16", BF16_CPU_SIZE,
+                      BF16_LOSS_RTOL, BF16_GRAD_COS)
 
 
 # ------------------------------------------------------------ reHistoGAN
@@ -901,8 +1045,8 @@ def write_photo(path: Path, seed: int, size=(384, 512)) -> None:
 
     rng = np.random.default_rng(seed)
     h, w = size
-    base = rng.random((h // 32, w // 32, 3)) * 255
-    img = np.kron(base, np.ones((32, 32, 1))) + rng.normal(0, 12, (h, w, 3))
+    base = rng.random((-(-h // 32), -(-w // 32), 3)) * 255
+    img = np.kron(base, np.ones((32, 32, 1)))[:h, :w] + rng.normal(0, 12, (h, w, 3))
     path.parent.mkdir(parents=True, exist_ok=True)
     Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(path, quality=95)
 
@@ -913,6 +1057,16 @@ def plain_hists(images: np.ndarray) -> np.ndarray:
     from histogan_tpu_torch.ops.histogram import histogram_feature
 
     return histogram_feature(torch.from_numpy(images), resizing="sampling").numpy()
+
+
+def recolor_inputs(work: Path):
+    """R1's photo resized to 256 px, (1, 256, 256, 3), and the target .npy."""
+    from histogan_tpu_torch.data.dataset import load_rgb
+
+    img = torch.from_numpy(np.asarray(load_rgb(work / "input.jpg"), np.float32)[None])
+    img256 = torch.nn.functional.interpolate(img.permute(0, 3, 1, 2), size=(256, 256),
+                                             mode="bilinear", align_corners=False)
+    return img256.permute(0, 2, 3, 1).numpy(), np.load(work / "target_hist.npy")
 
 
 def phase_recolor(histogram_cuda, dev, smi) -> dict:
@@ -980,11 +1134,7 @@ def phase_recolor(histogram_cuda, dev, smi) -> dict:
             process_image(model, "recolor", str(inp), str(tgt), image_size=256,
                           results_dir=str(work / "results"), rng=np.random.default_rng(0))
 
-    img = np.asarray(load_rgb(inp), np.float32)
-    img256 = torch.from_numpy(img[None]).permute(0, 3, 1, 2)
-    img256 = torch.nn.functional.interpolate(img256, size=(256, 256), mode="bilinear",
-                                             align_corners=False).permute(0, 2, 3, 1).numpy()
-    h1 = np.load(work / "target_hist.npy")
+    img256, h1 = recolor_inputs(work)
 
     def bare():
         model.recolor(img256, h1)
@@ -1081,18 +1231,22 @@ def rehisto_steps_run(t, tag: str, n: int, histogram_cuda=None):
     return step_ms, per_step
 
 
-def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path]):
+def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
+                        policy: Optional[dict] = None, fp32_rate: Optional[float] = None):
     """R2: recoloring training at batch 2 x accumulation 8, then the rate at
-    batch 16 x accumulation 1. Returns ({kernel: launches in the 10
-    steps}, imgs/s)."""
+    batch 16 x accumulation 1; or R2b, with ``policy`` (REHISTO_BF16), the
+    same 10 + 1 steps under it, the dtypes checked across the save and load.
+    Returns ({kernel: launches in the 10 steps}, imgs/s)."""
     from histogan_tpu_torch.train import rehisto_steps
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
-    tag = "rehisto train"
-    work = WORK / "rehisto_train"
+    policy = policy or {}
+    label = policy.get("precision", "fp32")
+    tag = "rehisto train" if label == "fp32" else f"rehisto train {label}"
+    work = WORK / f"rehisto_train_{label}"
     write_images(work / "data")
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
-               save_every=1000)
+               save_every=1000, **policy)
     imgs_per_step = cfg["batch_size"] * cfg["gradient_accumulate_every"]
     t = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
     t.init_GAN()
@@ -1113,14 +1267,16 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path]):
     check(all(p == (2 * accum, accum) for p in per_step),
           f"K1 and K2 launched {2 * accum} and {accum} times a step: {per_step}")
     after = t.reference_state_dict()
-    for prefix in ("ED", "H", "G", "D"):
+    for prefix in REHISTO_PARTS:
         keys = [k for k in after if k.split(".")[0] == prefix]
         check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
     del before
+    check_dtypes(t, policy, REHISTO_PARTS, ())
     rate = 3 * imgs_per_step / (sum(step_ms[5:8]) / 1e3)
+    versus = "" if fp32_rate is None else f" against {fp32_rate:.2f} imgs/s fp32 in R2"
     print(f"{tag}: pool of 64 images in {pool_s:.2f} s (K1 launches {pool_launches}); steps "
           f"5-7 (plain) {step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} "
-          f"imgs/s (batch 2 x accumulation {accum}, fp32); GP steps 4 and 8 "
+          f"imgs/s (batch 2 x accumulation {accum}, {label}){versus}; GP steps 4 and 8 "
           f"{step_ms[4]:.2f}/{step_ms[8]:.2f} ms; peak {peak} bytes; launches per step "
           f"K1 {per_step[0][0]}, K2 {per_step[0][1]}; in the 10 steps {counts} on {smi}")
 
@@ -1132,7 +1288,8 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path]):
                 t.state, batch, rehisto_steps.draw_step(t.gen, t.cfg, t.device), t.cfg, gp,
                 **REHISTO_HYPER)
 
-        profile_fns({"plain": step(False), "gp": step(True)}, profile, "rehisto_")
+        profile_fns({"plain": step(False), "gp": step(True)}, profile,
+                    "rehisto_" if label == "fp32" else f"rehisto_{label}_")
 
     t.save(1)
     opt_steps = t.state.step
@@ -1143,15 +1300,20 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path]):
     check(r.load(-1) == 0, "a checkpoint to load")
     check(r.state.step == opt_steps and r.steps == cfg["save_every"],
           f"step counters carried over ({r.state.step}, {r.steps})")
+    check(r.cfg.precision == label, f"precision {label} after the load")
+    check_dtypes(r, policy, REHISTO_PARTS, ())
     r.set_data_src(str(work / "data"), sampling=True)
     m = r.train(**REHISTO_HYPER)
     r.close()
     check(all(math.isfinite(v) for v in m.values()) and r.state.step == opt_steps + 1,
           "one finite step after the resume")
+    check_dtypes(r, policy, REHISTO_PARTS, ())
     print(f"{tag}: saved at step {opt_steps}, loaded, one more step: "
           + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
     del r
     torch.cuda.empty_cache()
+    if policy:
+        return counts, rate
 
     # bench.py's reHistoGAN configuration: batch 16 x accumulation 1
     cfg16 = dict(cfg, batch_size=16, gradient_accumulate_every=1)
@@ -1185,7 +1347,19 @@ def rehisto_exact_grads(cfg, batch, draws, apply_gp, work) -> dict:
     d = rehisto_steps.ReHistoDraws([x.to(t.device, torch.float64) for x in draws.d],
                                    [x.to(t.device, torch.float64) for x in draws.g])
     rehisto_steps.train_step(t.state, b, d, t.cfg, apply_gp, **REHISTO_HYPER)
-    return {k: g.detach().cpu() for k, (_, g) in applied_grads(t, ("ED", "H", "G", "D")).items()}
+    return {k: g.detach().cpu() for k, (_, g) in applied_grads(t, REHISTO_PARTS).items()}
+
+
+def rehisto_step_batch(size: int) -> dict:
+    """The recoloring step-0 batch (batch 2) of R3 and R3b."""
+    rng = np.random.default_rng(17)
+    hists = rng.random((2, 1, 2, 3, 64, 64), dtype=np.float32)
+    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
+    return {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
+                                                      dtype=np.uint8)),
+            "g_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
+                                                      dtype=np.uint8)),
+            "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
 
 
 def phase_rehisto_card_vs_cpu() -> None:
@@ -1200,14 +1374,7 @@ def phase_rehisto_card_vs_cpu() -> None:
     work = WORK / "rehisto_card_vs_cpu"
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=1, seed=3)
     size = cfg["image_size"]
-    rng = np.random.default_rng(17)
-    hists = rng.random((2, 1, 2, 3, 64, 64), dtype=np.float32)
-    hists /= hists.sum(axis=(3, 4, 5), keepdims=True)
-    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
-                                                       dtype=np.uint8)),
-             "g_images": torch.from_numpy(rng.integers(0, 256, (1, 2, size, size, 3),
-                                                       dtype=np.uint8)),
-             "d_hists": torch.from_numpy(hists[0]), "g_hists": torch.from_numpy(hists[1])}
+    batch = rehisto_step_batch(size)
     for apply_gp in (True, False):
         tr = {name: RecoloringTrainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
               for name, d in (("card", CARD), ("cpu", "cpu"))}
@@ -1219,11 +1386,309 @@ def phase_rehisto_card_vs_cpu() -> None:
             tr, lambda t: rehisto_steps.train_step(
                 t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
                 apply_gp, **REHISTO_HYPER),
-            names, ("ED", "H", "G", "D"),
+            names, REHISTO_PARTS,
             f"reHistoGAN step 0 ({'GP' if apply_gp else 'plain'}) {size} px batch 2", exact)
         del exact
         del tr
         torch.cuda.empty_cache()
+
+
+# ------------------------------------- reHistoGAN: bf16, full resolution, pools
+def phase_recolor_bf16(histogram_cuda, smi) -> dict:
+    """R1b: the recolor under --precision bf16 through rehistogan-torch,
+    its ms per photo, and the bf16 recolor held to the fp32 one on the card
+    on the same weights, image, histogram and noise. Returns the K1 and K2
+    launches of the --generate run."""
+    from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    from histogan_tpu_torch.train.rehisto_steps import RecolorModels, recolor_forward
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+    from histogan_tpu_torch.train.steps import cast_models
+
+    src, work = WORK / "recolor", WORK / "recolor_bf16"
+    pt, inp, tgt = src / "weights.pt", src / "input.jpg", src / "target.jpg"
+    reset_counts(histogram_cuda)
+    t0 = time.perf_counter()
+    train_from_folder(results_dir=str(work / "results"), models_dir=str(work / "models"),
+                      name="recolor", image_size=256, network_capacity=16, skip_conn_to_GAN=True,
+                      variance_loss=True, hist_resizing="sampling", load_histogan_weights=False,
+                      load_pt=str(pt), generate=True, input_image=str(inp), target_hist=str(tgt),
+                      seed=0, device=CARD, precision="bf16")
+    torch.cuda.synchronize()
+    counts = {"histogram_fwd": histogram_cuda.launches,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    files = list((work / "results" / "recolor").glob("output-target-*-generated.jpg"))
+    check(len(files) == 1, f"one bf16 recolored image written: {files}")
+    check(counts["histogram_fwd"] >= 1, f"K1 launched on the bf16 recolor path ({counts})")
+    print(f"recolor bf16: --generate --precision bf16 toward a target image: "
+          f"{time.perf_counter() - t0:.2f} s, K1 launches {counts['histogram_fwd']}")
+
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
+    models = {}
+    for precision in ("bf16", "fp32"):
+        t = RecoloringTrainer("recolor", work / "results", work / "models", device=CARD,
+                              precision=precision, **cfg)
+        t.init_GAN()
+        t.load_pt(pt)
+        models[precision] = t
+
+    def one():
+        with contextlib.redirect_stdout(io.StringIO()):
+            process_image(models["bf16"], "recolor", str(inp), str(tgt), image_size=256,
+                          results_dir=str(work / "results"), rng=np.random.default_rng(0))
+
+    one()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        one()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / 10
+
+    img256, h1 = recolor_inputs(src)
+    imgs = torch.from_numpy(np.concatenate(
+        [img256, np.random.default_rng(14).random((1, 256, 256, 3), dtype=np.float32)]))
+    hists = torch.from_numpy(np.concatenate(
+        [h1, plain_hists(np.random.default_rng(15).random((1, 128, 128, 3), dtype=np.float32))]))
+    noise = torch.from_numpy(np.random.default_rng(16).random((2, 256, 256, 1), dtype=np.float32))
+    raw = {}
+    with torch.inference_mode():
+        for precision, t in models.items():
+            m = cast_models(RecolorModels(t.ED, t.H, t.G, None), torch.bfloat16
+                            if precision == "bf16" else torch.float32)
+            raw[precision] = recolor_forward(
+                m, imgs.permute(0, 3, 1, 2).to(CARD), hists.to(CARD), noise.to(CARD), t.cfg)
+        got = models["bf16"].recolor(imgs, hists, noise=noise.to(CARD))
+    check(raw["bf16"].dtype == got.dtype == torch.bfloat16, "the bf16 recolor runs in bf16")
+    same = (got.float() - raw["bf16"].float().clamp(0, 1).permute(0, 2, 3, 1)).abs().max().item()
+    check(same <= 2.0 ** -8, f"the trainer's bf16 recolor is the bf16 forward, clipped "
+                             f"(max|d| {same:.3e}, within a bf16 spacing)")
+    a, b = raw["bf16"].float().cpu(), raw["fp32"].cpu()
+    scale = b.abs().max().item()
+    gap = (a - b).abs().max().item() / scale
+    clipped = (a.clamp(0, 1) - b.clamp(0, 1)).abs()
+    check(bool(torch.isfinite(a).all()), "bf16 recolor finite")
+    check(gap <= RECOLOR_BF16_TOL_REL,
+          f"bf16 vs fp32 recolor {gap:.3e} of the largest entry <= {RECOLOR_BF16_TOL_REL}")
+    print(f"recolor bf16: {ms:.2f} ms per recolored image at batch 1 (process_image, as R1); "
+          f"2 recolors at 256 px, bf16 vs fp32 on the card: max|d| {gap:.3e} of the largest "
+          f"pre-clip entry {scale:.3e} (tolerance {RECOLOR_BF16_TOL_REL}); after the clip max "
+          f"{clipped.max().item():.3e}, mean {clipped.mean().item():.3e} on {smi}")
+    del models
+    torch.cuda.empty_cache()
+    return counts
+
+
+def grid_size(size_hw, mode: str, levels: int):
+    """The (W, H) of the file RecoloringTrainer.evaluate writes for one photo
+    of ``size_hw`` in ``mode``, as the JAX package's evaluate gives it: the
+    pyramid pads each side up to a multiple of 2**levels; every grid has
+    save_image_grid's 2 px border; the downscaled file is resized by PIL to
+    the photo's size exactly."""
+    h, w = size_hw
+    if mode == "downscaling":
+        return w, h
+    if mode == "pyramid":
+        m = 2 ** levels
+        h, w = -(-h // m) * m, -(-w // m) * m
+    return w + GRID_BORDER, h + GRID_BORDER
+
+
+def phase_fullres(smi) -> dict:
+    """R4: full-resolution output on a 384x512 and a 200x180 photo. First
+    rehistogan-torch's train_from_folder(generate=True) with the documented
+    --upsampling_output True --upsampling_method BGU on the card. Then each
+    mode (upscaling by the pyramid and by BGU on the scipy and on the native
+    backend, downscaling, and post-recoloring) through the CLI's
+    process_image on a card trainer and a CPU trainer whose recolors take
+    one noise: the card's file has the size JAX's evaluate gives it, the
+    final image from the card's recolor is held to the CPU's, and the card's
+    seconds stand beside process_image's without post-processing. Returns
+    {mode: seconds of process_image on the card}."""
+    from PIL import Image
+
+    from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    from histogan_tpu_torch.train import rehisto_trainer
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    src, work = WORK / "recolor", WORK / "fullres"
+    pt, tgt = src / "weights.pt", src / "target.jpg"
+    photos = {"384x512": (work / "large.jpg", (384, 512)), "200x180": (work / "small.jpg", (200, 180))}
+    for seed, (path, size) in enumerate(photos.values()):
+        write_photo(path, 21 + seed, size)
+    modes = [("none", "384x512", {}),
+             ("pyramid", "384x512", dict(upsampling_output=True, upsampling_method="pyramid")),
+             ("BGU scipy", "384x512", dict(upsampling_output=True, upsampling_method="BGU")),
+             ("BGU native", "384x512", dict(upsampling_output=True, upsampling_method="BGU")),
+             ("downscaling", "200x180", dict(upsampling_output=True)),
+             ("post_recoloring", "384x512", dict(post_recoloring=True))]
+    backend = os.environ.get("HISTOGAN_BGU")
+
+    def written(out_dir: Path):
+        files = list((out_dir / "fullres").glob("output-target-*-generated.jpg"))
+        check(len(files) == 1, f"R4: one file written in {out_dir} ({files})")
+        return Image.open(files[0]).size
+
+    # the entry point a user calls, as README documents it
+    os.environ["HISTOGAN_BGU"] = "scipy"
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_from_folder(results_dir=str(work / "cli"), models_dir=str(work / "models"),
+                          name="fullres", image_size=REHISTO["image_size"],
+                          network_capacity=REHISTO["network_capacity"],
+                          skip_conn_to_GAN=True, variance_loss=True, hist_resizing="sampling",
+                          load_histogan_weights=False, load_pt=str(pt), generate=True,
+                          input_image=str(photos["384x512"][0]), target_hist=str(tgt), seed=0,
+                          device=CARD, pyramid_levels=R4_PYRAMID_LEVELS, upsampling_output=True,
+                          upsampling_method="BGU")
+    got, want = written(work / "cli"), grid_size((384, 512), "full", R4_PYRAMID_LEVELS)
+    check(got == want, f"R4 train_from_folder BGU: file {got}, JAX's evaluate writes {want}")
+    print(f"R4 rehistogan-torch --generate --upsampling_output True --upsampling_method BGU: "
+          f"384x512 photo, file {got[0]}x{got[1]} (W x H, JAX's size), "
+          f"{time.perf_counter() - t0:.2f} s on {smi}")
+
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
+    trainers = {}
+    # one noise for both devices: each trainer's recolor takes it
+    size = REHISTO["image_size"]
+    noise = torch.from_numpy(np.random.default_rng(23).random((1, size, size, 1), dtype=np.float32))
+    for name, d in (("card", CARD), ("cpu", "cpu")):
+        t = RecoloringTrainer("fullres", work / name, work / "models", device=d, **cfg)
+        t.init_GAN()
+        t.load_pt(pt)
+        t.recolor = (lambda img, hist, _r=t.recolor, _n=noise.to(t.device): _r(img, hist, noise=_n))
+        trainers[name] = t
+    # the images evaluate writes, in memory: its first (the recolor) and last
+    images = []
+    real_save = rehisto_trainer.save_image_grid
+    rehisto_trainer.save_image_grid = lambda x, path, nrow: (images.append(np.array(x)),
+                                                             real_save(x, path, nrow))
+    secs = {}
+    try:
+        for i, (mode, photo, flags) in enumerate([modes[0], *modes]):  # the first warms up
+            path, size_hw = photos[photo]
+            if mode.startswith("BGU"):
+                os.environ["HISTOGAN_BGU"] = mode.split()[1]
+            recolored, finals = {}, {}
+            for name, t in trainers.items():
+                t.results_dir = work / name / f"{i}_{mode.replace(' ', '_')}"
+                images.clear()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    process_image(t, "fullres", str(path), str(tgt), image_size=size,
+                                  pyramid_levels=R4_PYRAMID_LEVELS,
+                                  results_dir=str(t.results_dir),
+                                  rng=np.random.default_rng(0), **flags)
+                torch.cuda.synchronize()
+                if name == "card":
+                    secs[mode] = time.perf_counter() - t0
+                recolored[name], finals[name] = images[0][0], images[-1][0]
+            kind = ("pyramid" if flags.get("upsampling_method") == "pyramid" else
+                    "downscaling" if mode == "downscaling" else
+                    "none" if mode == "none" else "full")
+            want = grid_size(size_hw if kind != "none" else (size, size), kind, R4_PYRAMID_LEVELS)
+            got = written(trainers["card"].results_dir)
+            check(got == want, f"R4 {mode}: the {photo} photo's file is {got}, JAX's evaluate "
+                               f"writes {want}")
+            check(finals["card"].shape == finals["cpu"].shape
+                  and bool(np.isfinite(finals["card"]).all()),
+                  f"R4 {mode}: the final image {finals['card'].shape}, finite")
+            rgap = float(np.abs(np.clip(recolored["card"], 0, 1)
+                                - np.clip(recolored["cpu"], 0, 1)).max())
+            gap = float(np.abs(np.clip(finals["card"], 0, 1) - np.clip(finals["cpu"], 0, 1)).max())
+            check(gap <= POST_FACTOR * rgap,
+                  f"R4 {mode}: card vs CPU final max|d| {gap:.3e} <= {POST_FACTOR} x the "
+                  f"recolor's {rgap:.3e}")
+            print(f"R4 {mode}: {photo} photo, file {got[0]}x{got[1]} (W x H, JAX's size); "
+                  f"process_image on the card {secs[mode]:.3f} s ({secs[mode] - secs['none']:.3f} s "
+                  f"above 'none'); card vs CPU final image max|d| {gap:.3e}, the recolor's "
+                  f"{rgap:.3e} (ratio {gap / rgap if rgap else 0.0:.2f}, gate {POST_FACTOR}) on {smi}")
+    finally:
+        rehisto_trainer.save_image_grid = real_save
+        if backend is None:
+            os.environ.pop("HISTOGAN_BGU", None)
+        else:
+            os.environ["HISTOGAN_BGU"] = backend
+    del trainers
+    torch.cuda.empty_cache()
+    return secs
+
+
+def phase_rehisto_bf16_step() -> None:
+    """R3b: the recoloring step-0 step (with the GP) under bf16 on the card
+    against fp32 on the card at full width, and against bf16 on the CPU at
+    BF16_CPU_SIZE px, in phase 9b's gates. The second is held as
+    tests/test_torch_rehisto_bf16.py holds the port to JAX: each gap within
+    its fixed gate or NOISE_FACTOR times the gap bf16 opens between the
+    card's bf16 and fp32 steps there."""
+    size = REHISTO["image_size"]
+    card = bf16_step_run(CARD, "bf16", size, rehisto=True)
+    compare_bf16_step("rehisto bf16 step", card,
+                      bf16_step_run(CARD, "fp32", size, rehisto=True), "card fp32", size,
+                      REHISTO_BF16_LOSS_RTOL, REHISTO_BF16_GRAD_COS)
+    del card
+    torch.cuda.empty_cache()
+    small = BF16_CPU_SIZE
+    card = bf16_step_run(CARD, "bf16", small, rehisto=True)
+    floor = bf16_gaps(card, bf16_step_run(CARD, "fp32", small, rehisto=True),
+                      REHISTO_BF16_LOSS_RTOL)
+    compare_bf16_step("rehisto bf16 step", card, bf16_step_run("cpu", "bf16", small, rehisto=True),
+                      "cpu bf16", small, REHISTO_BF16_LOSS_RTOL, REHISTO_BF16_GRAD_COS, floor)
+
+
+def phase_pool_clis(histogram_cuda, smi) -> dict:
+    """H1: histogan-create-hist-data-torch on 8 photos of 250x250 (K1 once
+    each, at (1, 250^2)) and histogan-create-hist-sample-torch on one photo
+    (K1 once, at (1, 150^2), interpolation), each held to the same command
+    with --device cpu at the histogram gate. Returns {CLI: {kernel:
+    launches}} of the card's runs."""
+    from histogan_tpu_torch.cli import create_hist_data, create_hist_sample
+
+    work = WORK / "pools"
+    for i in range(8):
+        write_photo(work / "histogram_data" / f"{i}.jpg", 30 + i, (250, 250))
+    shapes = []
+    real_launch = histogram_cuda._launch
+
+    def launch(packed, inv_sigma2):
+        shapes.append(tuple(packed.shape[:2]))
+        return real_launch(packed, inv_sigma2)
+
+    launches = {}
+    outs = {}
+    runs = (("create_hist_data", create_hist_data,
+             ["--input_dir", str(work / "histogram_data")], "--output", (1, 250 * 250), 8),
+            ("create_hist_sample", create_hist_sample,
+             ["--image", str(WORK / "recolor" / "target.jpg")], "--output_dir", (1, 150 * 150), 1))
+    histogram_cuda._launch = launch
+    try:
+        for name, cli, args, out_flag, shape, n in runs:
+            secs = {}
+            for device in ("cuda", "cpu"):
+                shapes.clear()
+                reset_counts(histogram_cuda)
+                target = work / f"{name}_{device}" / ("pool.npy" if out_flag == "--output" else "")
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    path = cli.main([*args, out_flag, str(target), "--device", device])
+                torch.cuda.synchronize()
+                secs[device] = time.perf_counter() - t0
+                outs[device] = np.load(path)
+                if device == "cuda":
+                    launches[name] = {"histogram_fwd": histogram_cuda.launches,
+                                      "histogram_bwd": histogram_cuda.bwd_launches}
+                    check(launches[name]["histogram_fwd"] == n and shapes == [shape] * n,
+                          f"H1 {name}: K1 launched {n} times at {shape}: "
+                          f"{launches[name]}, {shapes}")
+            l1 = float(np.abs(outs["cuda"] - outs["cpu"]).sum(axis=(-3, -2, -1)).max())
+            check(outs["cuda"].shape == outs["cpu"].shape and l1 < HIST_L1,
+                  f"H1 {name}: card vs CPU L1 {l1:.3e} < {HIST_L1}")
+            print(f"H1 {name}: {outs['cuda'].shape} card vs CPU L1 {l1:.3e} (gate {HIST_L1}); "
+                  f"launches {launches[name]}, K1 at {shape}; {secs['cuda']:.2f} s on the card, "
+                  f"{secs['cpu']:.2f} s with --device cpu on {smi}")
+    finally:
+        histogram_cuda._launch = real_launch
+    return launches
 
 
 def main(argv=None) -> int:
@@ -1263,14 +1728,21 @@ def main(argv=None) -> int:
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
     # the timed reHistoGAN phases before the comparisons that run steps on the CPU
     counts_recolor = timed("R1", phase_recolor, histogram_cuda, dev, smi)
-    counts_re, _ = timed("R2", phase_rehisto_train, histogram_cuda, smi, profile)
+    counts_recolor_bf16 = timed("R1b", phase_recolor_bf16, histogram_cuda, smi)
+    timed("R4", phase_fullres, smi)
+    pools = timed("H1", phase_pool_clis, histogram_cuda, smi)
+    counts_re, rate_re = timed("R2", phase_rehisto_train, histogram_cuda, smi, profile)
+    counts_re_bf16, _ = timed("R2b", phase_rehisto_train, histogram_cuda, smi, profile,
+                              REHISTO_BF16, rate_re)
     timed("9", phase_card_vs_cpu)
     timed("9b", phase_bf16_step)
     timed("R3", phase_rehisto_card_vs_cpu)
+    timed("R3b", phase_rehisto_bf16_step)
     check(counts_recolor["histogram_fwd"] >= 1 and counts_re["histogram_fwd"] >= 1
-          and counts_re["histogram_bwd"] >= 1,
-          f"K1 on the recolor path ({counts_recolor}), K1 and K2 on the recoloring "
-          f"training path ({counts_re})")
+          and counts_re["histogram_bwd"] >= 1 and counts_recolor_bf16["histogram_fwd"] >= 1
+          and counts_re_bf16["histogram_fwd"] >= 1 and counts_re_bf16["histogram_bwd"] >= 1,
+          f"K1 on the recolor paths ({counts_recolor}, bf16 {counts_recolor_bf16}), K1 and K2 "
+          f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16})")
     shutil.rmtree(WORK, ignore_errors=True)
 
     def main_row(rows):  # the training path's shape
@@ -1286,7 +1758,11 @@ def main(argv=None) -> int:
          "launches_by_path": {"sampling": sampling_launches, "training": counts["histogram_fwd"],
                               "training_bf16": counts_bf16["histogram_fwd"],
                               "recolor": counts_recolor["histogram_fwd"],
-                              "rehisto_training": counts_re["histogram_fwd"]},
+                              "rehisto_training": counts_re["histogram_fwd"],
+                              "recolor_bf16": counts_recolor_bf16["histogram_fwd"],
+                              "rehisto_training_bf16": counts_re_bf16["histogram_fwd"],
+                              "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
+                              "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"]},
          "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
          "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
@@ -1296,7 +1772,11 @@ def main(argv=None) -> int:
          "launches_by_path": {"training": counts["histogram_bwd"],
                               "training_bf16": counts_bf16["histogram_bwd"],
                               "recolor": counts_recolor["histogram_bwd"],
-                              "rehisto_training": counts_re["histogram_bwd"]},
+                              "rehisto_training": counts_re["histogram_bwd"],
+                              "recolor_bf16": counts_recolor_bf16["histogram_bwd"],
+                              "rehisto_training_bf16": counts_re_bf16["histogram_bwd"],
+                              "create_hist_data": pools["create_hist_data"]["histogram_bwd"],
+                              "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
          "shapes": bwd_rows},
     ]}))

@@ -6,13 +6,19 @@ defaults, plus ``--device``: the HistoGAN head transplant
 (``--load_histoGAN_weights``), ``--load_pt`` and ``--export_pt``
 (reference-layout ``.pt`` files), and recoloring toward an image, a
 ``.npy`` histogram or a folder of either, or under ``--sampling`` toward
-five-way mixes of a histogram pool ``.npy``.
+five-way mixes of a histogram pool ``.npy`` (``histogan-create-hist-data-torch``
+writes one). The output keeps the photo's resolution with
+``--upsampling_output True`` (``--upsampling_method pyramid`` or ``BGU``;
+a photo smaller than ``--image_size`` is resized down to its size),
+``--post_recoloring True`` recolors the original photo by MKL toward the
+output, and ``--face_extraction True`` aligns the face of each input photo
+into ``./temp-faces/`` first (it needs a landmark detector: dlib, or one
+registered with ``utils.face_preprocessing.set_landmark_detector``).
+``--precision bf16`` (or ``--fp16 True``) trains and recolors in bf16.
 
     rehistogan-torch --data ./dataset --name m --new True
-    rehistogan-torch --generate True --input_image in.jpg --target_hist t.jpg
-
-Not ported yet, and refused: ``--face_extraction``, ``--upsampling_output``,
-``--post_recoloring`` and bf16 (``--fp16``, ``--precision bf16``).
+    rehistogan-torch --generate True --input_image in.jpg --target_hist t.jpg \
+        --upsampling_output True --upsampling_method BGU
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ def hist_interpolation(hists: np.ndarray, rng: np.random.Generator) -> np.ndarra
     return np.tensordot(ratios, hists, axes=(0, 0))
 
 
-def process_image(model, name, input_image, target_hist, image_size=256, sampling=True,
+def process_image(model, name, input_image, target_hist, image_size=256,
+                  upsampling_output=False, upsampling_method="pyramid", swapping_levels=1,
+                  pyramid_levels=5, level_blending=False, post_recoloring=False, sampling=True,
                   target_number=1, results_dir="./results_ReHistoGAN/", hist_insz=150,
                   hist_bin=64, hist_method="inverse-quadratic", hist_resizing="sampling",
                   hist_sigma=0.02, histogram_pool="histogram_data/histograms.npy", rng=None):
@@ -44,7 +52,10 @@ def process_image(model, name, input_image, target_hist, image_size=256, samplin
     or a folder of either), or with no target and ``sampling`` toward
     ``target_number`` five-way mixes of the pool ``histogram_pool``
     ((N, 1, 3, h, h)). Target images' histograms are computed on the
-    model's device (through the histogram kernel on a GPU)."""
+    model's device (through the histogram kernel on a GPU). With
+    ``upsampling_output`` the output goes back to the photo's size
+    (``RecoloringTrainer.evaluate``); ``post_recoloring`` recolors the
+    original photo by MKL toward the output."""
     from PIL import Image
 
     from histogan_tpu_torch.data.dataset import load_rgb
@@ -52,6 +63,19 @@ def process_image(model, name, input_image, target_hist, image_size=256, samplin
 
     rng = rng or np.random.default_rng()
     img_pil = Image.open(input_image).convert("RGB")
+    original_img = np.asarray(img_pil) / 255.0
+
+    # the resizing-mode decision (rehistoGAN.py:81-95)
+    width = height = resizing_mode = None
+    if upsampling_output:
+        width, height = img_pil.size
+        if width > image_size or height > image_size:
+            resizing_mode = "upscaling"
+        elif width < image_size or height < image_size:
+            resizing_mode = "downscaling"
+        else:
+            resizing_mode = "none"
+
     if img_pil.size != (image_size, image_size):
         img_pil = img_pil.resize((image_size, image_size))
     img = np.asarray(img_pil, np.float32)[None] / 255.0  # (1, S, S, 3) NHWC
@@ -61,7 +85,11 @@ def process_image(model, name, input_image, target_hist, image_size=256, samplin
 
     def run(h, samples_name):
         model.evaluate(samples_name, image_batch=img, hist_batch=np.asarray(h, np.float32),
-                       save_input=False)
+                       resizing=resizing_mode, resizing_method=upsampling_method,
+                       swapping_levels=swapping_levels, pyramid_levels=pyramid_levels,
+                       level_blending=level_blending, original_size=[width, height],
+                       input_image_name=input_image, original_image=original_img,
+                       save_input=False, post_recoloring=post_recoloring)
         print(f"recolored images generated at {results_dir}/{name}/{samples_name}")
 
     if target_hist is None:
@@ -114,7 +142,8 @@ def train_from_folder(
     initialize_gan=False, variance_loss=False, target_hist=None, internal_hist=False,
     histoGAN_model_name=None, input_image=None, target_number=None,
     change_hyperparameters=False, change_hyperparameters_after=100000,
-    upsampling_output=False, post_recoloring=False,
+    upsampling_output=False, upsampling_method="pyramid", swapping_levels=1, pyramid_levels=6,
+    level_blending=False, post_recoloring=False,
     histogram_pool="histogram_data/histograms.npy", seed=42, load_pt=None, export_pt=None,
     num_devices=None, precision="fp32", sync_every=1, device_dataset="auto",
     param_sharding="replicated", opt_state_dtype=None, remat=False, num_workers=None,
@@ -126,10 +155,6 @@ def train_from_folder(
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
     from histogan_tpu_torch.train.trainer import NanException, Trainer
 
-    for flag, asked in (("upsampling_output", upsampling_output),
-                        ("post_recoloring", post_recoloring)):
-        if asked:
-            raise NotImplementedError(f"{flag}: not ported to the PyTorch package yet")
     model = RecoloringTrainer(
         name, results_dir, models_dir, batch_size=batch_size,
         gradient_accumulate_every=gradient_accumulate_every, image_size=image_size,
@@ -187,7 +212,10 @@ def train_from_folder(
         if input_image is None:
             raise Exception("No input image is given")
         kwargs = dict(
-            image_size=image_size, sampling=sampling, target_number=target_number,
+            image_size=image_size, upsampling_output=upsampling_output,
+            upsampling_method=upsampling_method, swapping_levels=swapping_levels,
+            pyramid_levels=pyramid_levels, level_blending=level_blending,
+            post_recoloring=post_recoloring, sampling=sampling, target_number=target_number,
             results_dir=results_dir, hist_insz=hist_insz, hist_bin=hist_bin,
             hist_method=hist_method, hist_resizing=hist_resizing, hist_sigma=hist_sigma,
             histogram_pool=histogram_pool, rng=np.random.default_rng(seed),
@@ -259,9 +287,10 @@ def get_args(argv=None):
     add("--save_every", type=int, default=10000)
     add("--trunc_psi", type=float, default=0.75)  # accepted; the recolor does not truncate
     add("--fp16", type=str2bool, default=False,
-        help="Reference flag; True means --precision bf16, which is not ported.")
+        help="Reference flag; True means --precision bf16.")
     add("--precision", choices=("fp32", "bf16"), default=None,
-        help="Training compute dtype; only fp32 is ported for reHistoGAN.")
+        help="Compute dtype of training and of the recolor (bf16 on fp32 "
+             "masters); overrides --fp16.")
     add("--sync_every", type=int, default=1)
     add("--device_dataset", default="auto", choices=("auto", "true", "false"))
     add("--param_sharding", default="replicated", choices=("replicated", "fsdp"))
@@ -306,10 +335,37 @@ def get_args(argv=None):
     return parser.parse_args(argv)
 
 
+def extract_faces(input_image: str, faces_dir: str = "./temp-faces/") -> str:
+    """The ``--face_extraction`` pre-pass (histogan_tpu/cli/rehistogan.py:
+    356-376): align the face of ``input_image`` (a file, or each image of a
+    folder, after emptying ``faces_dir`` of files) into ``faces_dir``;
+    returns what to recolor instead."""
+    from histogan_tpu_torch.utils.face_preprocessing import face_extraction
+
+    ext = os.path.splitext(input_image)[1].lower()
+    if ext in IMAGE_EXTS:
+        face_extraction(input_image, faces_dir)
+        return os.path.join(faces_dir, os.path.split(input_image)[-1])
+    if ext != "":
+        raise Exception("File extension is not supported!")
+    Path(faces_dir).mkdir(exist_ok=True)
+    for f in os.listdir(faces_dir):
+        if os.path.isfile(os.path.join(faces_dir, f)):
+            os.remove(os.path.join(faces_dir, f))
+    for f in sorted(os.listdir(input_image)):
+        p = os.path.join(input_image, f)
+        if os.path.isfile(p) and os.path.splitext(f)[1].lower() in IMAGE_EXTS:
+            face_extraction(p, faces_dir)
+    return faces_dir
+
+
 def main(argv=None):
     args = get_args(argv)
-    if args.face_extraction:
-        raise NotImplementedError("face_extraction: not ported to the PyTorch package yet")
+    input_image = args.input_image
+    if args.generate and args.face_extraction:
+        if input_image is None:
+            raise Exception("No input image is given")
+        input_image = extract_faces(input_image)
     return train_from_folder(
         data=args.data, results_dir=args.results_dir, models_dir=args.models_dir,
         name=args.name, new=args.new, histGAN_models_dir=args.histGAN_models_dir,
@@ -326,11 +382,13 @@ def main(argv=None):
         skip_conn_to_GAN=args.skip_conn_to_GAN, fixed_gan_weights=args.fixed_gan_weights,
         sampling=args.sampling, rec_loss=args.rec_loss,
         initialize_gan=args.initialize_gan, variance_loss=args.variance_loss,
-        input_image=args.input_image, internal_hist=args.internal_hist,
+        input_image=input_image, internal_hist=args.internal_hist,
         histoGAN_model_name=args.histoGAN_model_name, target_number=args.target_number,
         change_hyperparameters=args.change_hyperparameters,
         change_hyperparameters_after=args.change_hyperparameters_after,
-        upsampling_output=args.upsampling_output, post_recoloring=args.post_recoloring,
+        upsampling_output=args.upsampling_output, upsampling_method=args.upsampling_method,
+        swapping_levels=args.swapping_levels, pyramid_levels=args.pyramid_levels,
+        level_blending=args.level_blending, post_recoloring=args.post_recoloring,
         histogram_pool=args.histogram_pool, seed=args.seed, load_pt=args.load_pt,
         export_pt=args.export_pt, num_devices=args.num_devices,
         precision=args.precision or ("bf16" if args.fp16 else "fp32"),

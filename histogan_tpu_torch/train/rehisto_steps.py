@@ -1,6 +1,6 @@
 """One reHistoGAN (recoloring) training step in PyTorch, the counterpart
 of ``histogan_tpu/train/rehisto_steps.py`` (reference
-rehistoGAN.py:895-1052), in the eager style of ``train/steps.py``, fp32.
+rehistoGAN.py:895-1052), in the eager style of ``train/steps.py``.
 
 A step is a D phase then a G phase, each summing its gradients over
 ``gradient_accumulate_every`` micro-batches and dividing by their count
@@ -20,6 +20,14 @@ No EMA, path length or style mixing: the reference recoloringTrainer has
 none. As in ``train/steps.py`` the draws are inputs (:class:`ReHistoDraws`,
 one (B, S, S, 1) uniform noise per micro-batch of each phase), so the
 tests can feed the JAX step's own.
+
+Under ``precision='bf16'`` the step follows the JAX package's policy
+(rehisto_steps.py:31-39, 121-175): each phase casts the fp32 masters of
+ED, H, G and D once to bf16 copies (``steps.cast_models``), and the
+recolor runs on them with the image, the histogram and the noise cast to
+bf16; D's logits, the losses and the histograms are fp32, so K1 and K2
+see fp32 input (``generated32``). On the CPU the D phase runs under
+``steps.cpu_bf16_double_backward_guard``.
 """
 
 from __future__ import annotations
@@ -35,7 +43,8 @@ from histogan_tpu_torch.ops import filters, losses
 from histogan_tpu_torch.ops.histogram import histogram_feature
 from histogan_tpu_torch.train.state import ReHistoGANState
 from histogan_tpu_torch.train.steps import (
-    _accumulate, _update, d_loss, dequantize_images, to_nchw)
+    _accumulate, _update, cast_models, cast_module, compute_dtype, cpu_bf16_double_backward_guard,
+    d_loss, dequantize_images, to_nchw)
 
 GAUSS_SIZE, GAUSS_SIGMA = 15, 5.0  # the variance loss's blur (rehisto_steps.py:85)
 
@@ -69,10 +78,21 @@ def recolor_forward(models: RecolorModels, image_batch: torch.Tensor,
     histogram, or under ``internal_hist`` its projection H(hist); G gets
     ED's latent and rgb, H(hist) as the style of both blocks, the noise,
     and with ``skip_conn_to_GAN`` ED's two skip latents. NCHW images in
-    and out; ``noise`` is (B, S, S, 1)."""
+    and out; ``noise`` is (B, S, S, 1). Under bf16 the inputs are cast
+    to bf16, the dtype ``models`` run in (``steps.cast_models``), so the
+    output is bf16 too; under fp32 they run as given."""
+    dtype = compute_dtype(cfg)
+    if dtype != torch.float32:
+        image_batch, hist_batch, noise = (x.to(dtype) for x in (image_batch, hist_batch, noise))
     h_w = models.H(hist_batch)
     out = models.ED(image_batch, h_w if cfg.internal_hist else hist_batch)
     return models.G(out[0], out[1], h_w, noise, *out[2:])
+
+
+def widen(x: torch.Tensor) -> torch.Tensor:
+    """bf16 widened to fp32 for the loss math (``.astype(float32)`` in the
+    JAX step); an fp32 or float64 tensor as it is."""
+    return x.float() if x.dtype == torch.bfloat16 else x
 
 
 def rec_variant(rec_loss) -> str:
@@ -97,18 +117,20 @@ def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.T
            noise: torch.Tensor, cfg, alpha: float, beta: float, gamma: float,
            gauss: torch.Tensor):
     """G loss; returns (loss, adversarial, histogram, reconstruction,
-    variance). ``image_batch`` NCHW."""
+    variance). ``image_batch`` NCHW. ``models`` run in
+    ``compute_dtype(cfg)``; D's logits and the losses are fp32."""
     generated = recolor_forward(models, image_batch, hist_batch, noise, cfg)
-    adv = gamma * torch.mean(models.D(generated))
-    gen_hists = _hist(F.relu(generated).permute(0, 2, 3, 1), cfg)
+    adv = gamma * torch.mean(widen(models.D(generated)))
+    generated32 = widen(generated)  # the loss math in fp32 (rehisto_steps.py:152)
+    gen_hists = _hist(F.relu(generated32).permute(0, 2, 3, 1), cfg)
     hist = losses.hellinger_histogram_loss(hist_batch, gen_hists, alpha)
-    rec = beta * losses.reconstruction_loss(image_batch, generated, rec_variant(cfg.rec_loss))
+    rec = beta * losses.reconstruction_loss(image_batch, generated32, rec_variant(cfg.rec_loss))
     loss = adv + hist + rec
     var = torch.zeros_like(loss)
     if cfg.variance_loss:
         # the reference's hist-of-hist (rehistoGAN.py:1020)
         hist_of_hist = _hist(F.relu(hist_batch).permute(0, 2, 3, 1), cfg)
-        var = losses.variance_loss(hist_batch, hist_of_hist, image_batch, generated, gauss,
+        var = losses.variance_loss(hist_batch, hist_of_hist, image_batch, generated32, gauss,
                                    beta)
         loss = loss + var
     return loss, adv, hist, rec, var
@@ -116,7 +138,10 @@ def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.T
 
 def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
             apply_gp: bool) -> Dict[str, torch.Tensor]:
-    models = RecolorModels(state.ED, state.H, state.G, None)
+    dtype = compute_dtype(cfg)
+    with torch.no_grad():
+        models = cast_models(RecolorModels(state.ED, state.H, state.G, None), dtype)
+    D = cast_module(state.D, dtype)
     params = list(state.D.parameters())
     accum = cfg.gradient_accumulate_every
     grads, divs, gp = None, [], None
@@ -124,7 +149,10 @@ def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
         real = to_nchw(dequantize_images(batch["d_images"][a]))
         with torch.no_grad():
             fake = recolor_forward(models, real, batch["d_hists"][a], draws.d[a], cfg)
-        loss, div, gp = d_loss(state.D, fake, real, apply_gp, real.dtype)
+        # D runs in bf16 under bf16, else on the images as they are (fp32,
+        # or a float64 witness's)
+        loss, div, gp = d_loss(D, fake, real, apply_gp,
+                               dtype if dtype == torch.bfloat16 else real.dtype)
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
     _update(state.opt_d, params, grads, accum)
@@ -134,7 +162,10 @@ def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
 
 def g_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
             alpha: float, beta: float, gamma: float) -> Dict[str, torch.Tensor]:
-    models = RecolorModels(state.ED, state.H, state.G, state.D)
+    dtype = compute_dtype(cfg)
+    models = cast_models(RecolorModels(state.ED, state.H, state.G, None), dtype)
+    with torch.no_grad():  # no gradient is taken on D here
+        models = models._replace(D=cast_module(state.D, dtype))
     params = state.g_params()
     # with fixed_gan_weights only ED's gradient is taken; H and G get zeros
     trainable = list(state.ED.parameters()) if cfg.fixed_gan_weights else params
@@ -163,7 +194,8 @@ def train_step(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: Re
     {'d_images', 'g_images': (A, B, S, S, C) uint8 or float NHWC,
     'd_hists', 'g_hists': (A, B, 3, h, h)}, on the state's device.
     Returns the step's metrics as 0-d tensors (no host sync)."""
-    metrics = d_phase(state, batch, draws, cfg, apply_gp)
+    with cpu_bf16_double_backward_guard(batch["d_hists"].device, compute_dtype(cfg)):
+        metrics = d_phase(state, batch, draws, cfg, apply_gp)
     metrics.update(g_phase(state, batch, draws, cfg, alpha, beta, gamma))
     state.step += 1
     return metrics

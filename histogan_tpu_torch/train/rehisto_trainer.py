@@ -8,14 +8,19 @@ schedule.
 As in ``train/trainer.py`` the trainer runs on an explicit ``device``:
 weights are drawn on the CPU from a ``torch.Generator`` seeded with
 ``seed`` and moved there; the step's noise and the recolor noise come
-from a generator on the device, seeded the same. Training is fp32.
+from a generator on the device, seeded the same. ``precision='bf16'``
+trains and recolors in bf16 on fp32 masters (``train/rehisto_steps.py``),
+as the JAX package's trainer does: its ``recolor`` and ``evaluate`` run
+in the step's compute dtype, and ``evaluate`` widens the images to fp32
+before it writes or post-processes them. ``evaluate`` upscales to the
+input photo's resolution (``post/pyramid.py``, ``post/bgu.py``), resizes
+down to it, and recolors the original by MKL (``post/mkl.py``), on the
+host, as in the JAX package.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-``precision='bf16'``, the discriminator's attention and vector-quantize
-layers, ``remat``, the dataset held in device memory
-(``device_dataset=True``), more than one device or FSDP, and
-``sync_every`` > 1. ``evaluate``'s upscaling, downscaling and
-post-recoloring (``post/*`` of the JAX package) are not ported.
+Not ported yet, and refused with NotImplementedError when asked for: the
+discriminator's attention and vector-quantize layers, ``remat``, the
+dataset held in device memory (``device_dataset=True``), more than one
+device or FSDP, and ``sync_every`` > 1.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from histogan_tpu_torch.train.checkpoint import CheckpointStore
 from histogan_tpu_torch.train.rehisto_steps import RecolorModels, draw_step, recolor_forward, \
     train_step
 from histogan_tpu_torch.train.state import ReHistoGANState
+from histogan_tpu_torch.train.steps import cast_models, compute_dtype
 from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice, \
     _refuse_deferred
 from histogan_tpu_torch.utils.config import ReHistoGANConfig
@@ -69,7 +75,6 @@ class RecoloringTrainer:
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
         _check_choice("device_dataset", device_dataset, ("auto", True, False))
         _refuse_deferred(
-            precision=precision == "bf16",
             fq_layers=len(fq_layers) > 0,
             attn_layers=len(attn_layers) > 0,
             remat=bool(remat),
@@ -90,7 +95,7 @@ class RecoloringTrainer:
             internal_hist=internal_hist, skip_conn_to_GAN=skip_conn_to_GAN,
             fixed_gan_weights=fixed_gan_weights, initialize_gan=initialize_gan,
             change_hyperparameters=change_hyperparameters,
-            change_hyperparameters_after=change_hyperparameters_after,
+            change_hyperparameters_after=change_hyperparameters_after, precision=precision,
         )
         self.name = name
         self.results_dir = Path(results_dir)
@@ -268,14 +273,17 @@ class RecoloringTrainer:
     def recolor(self, image_batch: torch.Tensor, hist_batch: torch.Tensor,
                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Recolor (N, S, S, 3) NHWC images toward (N, 3, h, h) histograms;
-        returns NHWC images clipped to [0, 1]. ``noise`` (N, S, S, 1)
-        defaults to a draw from the trainer's generator."""
+        returns NHWC images clipped to [0, 1], in the compute dtype (bf16
+        under ``precision='bf16'``, as the JAX package's ``_recolor``).
+        ``noise`` (N, S, S, 1) defaults to a draw from the trainer's
+        generator."""
         image_batch = torch.as_tensor(image_batch, dtype=torch.float32, device=self.device)
         hist_batch = torch.as_tensor(hist_batch, dtype=torch.float32, device=self.device)
         if noise is None:
             noise = torch.rand((*image_batch.shape[:3], 1), generator=self.gen,
                                device=self.device)
-        models = RecolorModels(self.ED, self.H, self.G, None)
+        models = cast_models(RecolorModels(self.ED, self.H, self.G, None),
+                             compute_dtype(self.cfg))
         out = recolor_forward(models, image_batch.permute(0, 3, 1, 2), hist_batch,
                               torch.as_tensor(noise, device=self.device), self.cfg)
         return torch.clamp(out.permute(0, 2, 3, 1), 0.0, 1.0)
@@ -293,24 +301,71 @@ class RecoloringTrainer:
         return np.concatenate([images] * copies).astype(np.float32), np.concatenate(hists)
 
     def evaluate(self, num=0, image_batch=None, hist_batch=None, triple_hist: bool = False,
-                 double_hist: bool = False, save_input: bool = True) -> np.ndarray:
+                 double_hist: bool = False, resizing=None, resizing_method=None,
+                 swapping_levels: int = 1, pyramid_levels: int = 5, level_blending: bool = False,
+                 original_size=None, input_image_name=None, original_image=None,
+                 post_recoloring: bool = False, save_input: bool = True) -> np.ndarray:
         """Recolor and save ``results/<name>/<num>-generated.jpg`` (and
         ``<num>-input.jpg``). Without batches, 4 dataset images toward 4
         pool interpolations, each image repeated toward 3 (``triple_hist``)
-        or 2 (``double_hist``) sets of targets, a row per image. Returns
-        the (N, S, S, 3) recolored images."""
+        or 2 (``double_hist``) sets of targets, a row per image.
+
+        Then, as ``histogan_tpu/train/rehisto_trainer.py:386-417`` does, on
+        the host: ``resizing='upscaling'`` replaces the file with the first
+        image brought to the resolution of ``input_image_name`` by
+        ``resizing_method`` 'BGU' or 'pyramid' (the padded size, a multiple
+        of 2**``pyramid_levels``); 'downscaling' resizes the written file to
+        ``original_size`` (W, H) with PIL; ``post_recoloring`` overwrites
+        the file with ``original_image`` (the full-resolution photo in
+        [0, 1]) recolored by MKL toward the first image. Returns the
+        (N, S, S, 3) recolored images, fp32."""
         cfg = self.cfg
         if image_batch is None or hist_batch is None:
             image_batch, hist_batch = self._eval_batches(triple_hist, double_hist)
             img_bt_sz = 4
         else:
             img_bt_sz = len(image_batch)
-        generated = self.recolor(image_batch, hist_batch).cpu().numpy()
+        # widened to fp32 before the clip's output is written or post-processed
+        generated = self.recolor(image_batch, hist_batch).float().cpu().numpy()
         grouped = double_hist or triple_hist
         num_rows = img_bt_sz if grouped else int(np.ceil(np.sqrt(len(hist_batch))))
         ext = "jpg" if not cfg.transparent else "png"
         out_dir = self.results_dir / self.name
-        save_image_grid(generated, out_dir / f"{num}-generated.{ext}", nrow=num_rows)
+        output_name = out_dir / f"{num}-generated.{ext}"
+        save_image_grid(generated, output_name, nrow=num_rows)
+
+        if resizing == "upscaling":
+            print("Upsampling")
+            from histogan_tpu_torch.data.dataset import load_rgb
+
+            reference_img = load_rgb(input_image_name)
+            if resizing_method == "BGU":
+                from histogan_tpu_torch.post.bgu import bgu_upsample
+
+                out = bgu_upsample(reference_img, generated[0])
+                save_image_grid(out[None], output_name, nrow=1)
+            elif resizing_method == "pyramid":
+                from histogan_tpu_torch.post.pyramid import pyramid_upsampling
+
+                out = pyramid_upsampling(generated[0], reference_img, levels=pyramid_levels,
+                                         swapping_levels=swapping_levels,
+                                         blending=level_blending)
+                save_image_grid(np.clip(out, 0, 1)[None], output_name, nrow=1)
+        elif resizing == "downscaling" and original_size is not None:
+            print("Resizing")
+            from PIL import Image
+
+            img = Image.open(output_name)
+            img.resize((original_size[0], original_size[1])).save(output_name)
+
+        if post_recoloring:
+            print("Post-recoloring")
+            from histogan_tpu_torch.post.mkl import color_transfer_MKL
+
+            # the reference's quirk: this overwrites any upsampled file
+            save_image_grid(color_transfer_MKL(original_image, generated[0])[None], output_name,
+                            nrow=1)
+
         if save_input:
             save_image_grid(np.asarray(image_batch)[:img_bt_sz], out_dir / f"{num}-input.{ext}",
                             nrow=img_bt_sz if grouped else num_rows)

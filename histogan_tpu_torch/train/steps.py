@@ -90,9 +90,11 @@ def cpu_bf16_double_backward_guard(device: torch.device, dtype: torch.dtype):
         torch.backends.mkldnn.enabled = was
 
 
-def cast_models(models: Models, dtype: torch.dtype) -> Models:
-    """``cast_module`` of each module; a None stays None."""
-    return Models(*(None if m is None else cast_module(m, dtype) for m in models))
+def cast_models(models, dtype: torch.dtype):
+    """``cast_module`` of each module of ``models`` (a ``Models`` or
+    another NamedTuple of modules), in a tuple of its type; a None stays
+    None."""
+    return type(models)(*(None if m is None else cast_module(m, dtype) for m in models))
 
 
 @dataclasses.dataclass

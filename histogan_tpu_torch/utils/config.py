@@ -90,7 +90,10 @@ class HistoGANConfig:
 @dataclasses.dataclass
 class ReHistoGANConfig(HistoGANConfig):
     """The recoloring fields over HistoGANConfig (copied from
-    ``histogan_tpu/utils/config.py``; reference rehistoGAN.py:721-733)."""
+    ``histogan_tpu/utils/config.py``; reference rehistoGAN.py:721-733).
+    Its ``precision`` sets the recoloring step's compute dtype and, unlike
+    HistoGAN's sampling, the recolor's too (the JAX package's ``_recolor``
+    runs in it)."""
 
     rec_loss: str = "laplacian"  # None -> 'L1', 'sobel', 'laplacian'
     variance_loss: bool = True

@@ -210,4 +210,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "utils.logging", "cli.histogan"}
     rehisto = {"models.rehisto", "ops.filters", "train.rehisto_steps", "train.rehisto_trainer",
                "cli.rehistogan"}
-    assert {f"histogan_tpu_torch.{m}" for m in training | rehisto} <= loaded
+    post = {"post", "post.imresize", "post.mkl", "post.pyramid", "post.bgu", "post.bgu_native",
+            "native", "utils.face_preprocessing", "cli.create_hist_data",
+            "cli.create_hist_sample"}
+    assert {f"histogan_tpu_torch.{m}" for m in training | rehisto | post} <= loaded
