@@ -33,8 +33,12 @@ Phases, each printing its lines:
      EMA is held to the exact fp32 EMA; the dtypes of the weights, the EMA
      and the optimizer state are checked before and after the resume;
   9. card vs CPU: one step-0 train step (GP and PL) at full width and
-     batch 2 on both devices from the same weights, batch and draws; then
-     the same step without the gradient penalty;
+     batch 2 on both devices from the same weights, batch and draws, and
+     once more on the CPU with the kinks pinned: every leaky_relu and relu
+     call takes the slope that its input's sign gave it on the card
+     (``recorded_kinks``, ``pinned_kinks``), so its gradients are held far
+     tighter (PINNED_GRAD_RTOL); then the same step without the gradient
+     penalty;
   9b. the step-0 step (GP and PL) under precision='bf16' against fp32 on
      the card at full width and batch 2, and against bf16 on the CPU at
      BF16_CPU_SIZE px (bf16 on the CPU costs several times fp32);
@@ -50,7 +54,8 @@ Phases, each printing its lines:
      load into a new trainer and one more step; K1 and K2 launches per
      step; the rate at batch 16 x accumulation 1 as well;
   R3. card vs CPU: the recoloring step-0 step at full width, batch 2,
-     with and without the GP, in phase 9's gate forms;
+     with and without the GP, in phase 9's gate forms (the GP step also
+     pinned);
   R1b. the recolor under --precision bf16 through train_from_folder, its ms
      per photo, and the bf16 recolor held to the fp32 one on the card;
   R4. full-resolution output: train_from_folder(generate=True) with
@@ -69,8 +74,24 @@ Phases, each printing its lines:
   R3b. the recoloring step-0 step under bf16 against fp32 on the card (256
      px) and against bf16 on the CPU (BF16_CPU_SIZE px), in phase 9b's
      gates (each loss, each tensor's gradient cosine).
-R1, R1b, R4, H1, R2 and R2b run after phase 8b, before the phases that run
-steps on the CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
+  P1. projection (GAN inversion) at 256 px, capacity 16, latent 512,
+     style depth 8, seeded weights, VGG on (seeded weights at the real
+     shapes behind VGG16_WEIGHTS), both modes, card vs CPU from the same
+     photo and draws: the start render, the step-0 losses and gradients,
+     also with the card's kinks pinned on the CPU; then 50 card steps
+     lower the reconstruction loss;
+  P2. projection steps/s on the card under the JAX bench's names
+     (projection_{z_space,style_space,z_space_vgg}_steps_per_sec_256px),
+     perf_out's window over 200 steps, two runs each; with --profile one
+     profiled step of each (device busy ms and share);
+  P3. histogan-projection-gaussian-torch and -to-latent-torch through
+     main([...]) on a saved flagship checkpoint (20 steps, --save_every 10),
+     then --generate toward a JPEG, a .npy and a folder, and (gaussian)
+     with --post_recoloring and with --upsampling_output (pyramid): each
+     file the JAX package writes, by name and size, the npz keys and shapes
+     as JAX's; K1 counted on each path.
+R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b, before the phases
+that run steps on the CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
 too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
 the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
 a pool entry.
@@ -133,6 +154,23 @@ STEP_GRAD_RTOL = 5e-2
 # entries must be settled, so that the gate covers the bulk of them.
 STEP_PARAM_CLOSE = 1e-6
 STEP_SETTLED_MIN = 0.5
+# Card vs CPU gradients with the kinks pinned (phase 9, R3, P1): the CPU
+# step replays the sign mask that every leaky_relu and relu input had on
+# the card (``recorded_kinks``, ``pinned_kinks``), so that no entry takes
+# the other slope on one side and what is left is the rounding of fp32
+# sums taken in other orders. Per tensor, relative to its largest entry.
+# Measured (NVIDIA H100 80GB HBM3, 700 W, two runs of this script), the
+# worst tensor: phase 9's GP+PL step 3.556e-5 and 4.169e-5 (8.243e-3
+# unpinned, 48-51 leaky_relu entries flipped), its PL step 5.884e-5 and
+# 5.853e-5 (4.005e-3 unpinned); R3's GP step 1.636e-4 and 1.659e-4
+# (1.820e-2 unpinned), its plain step 3.384e-5 and 2.474e-5 (8.096e-2
+# unpinned, D.blocks.6.net.0.bias: a kink, not the CPU's rounding); P1
+# 1.222e-6 to 1.819e-6 (5.251e-4 unpinned; 8-9 leaky_relu and 14 relu
+# entries flipped). Each gate allows about 3 times the largest gap of its
+# phase (P1 about 5 times).
+PINNED_GRAD_RTOL = 2e-4
+REHISTO_PINNED_GRAD_RTOL = 5e-4
+PROJECTION_PINNED_GRAD_RTOL = 1e-5
 # A conv bias that feeds an InstanceNorm (reHistoGAN's encoder) has an
 # exact gradient of 0; on either device it is rounding, held to this share
 # of its weight's largest gradient entry.
@@ -795,9 +833,10 @@ def step_batch(size: int, cfg):
     return batch, draw_step(torch.Generator().manual_seed(8), cfg, "cpu", apply_pl=True)
 
 
-def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
+def card_vs_cpu_step(apply_gp: bool, apply_pl: bool, pin: bool = False) -> dict:
     """One train step with the given flags at full width and batch 2 on the
-    card and on the CPU, from the same weights, batch and draws."""
+    card and on the CPU, from the same weights, batch and draws; with
+    ``pin``, on the CPU once more with the card's kinks."""
     from histogan_tpu_torch.train.steps import train_step
     from histogan_tpu_torch.train.trainer import Trainer
 
@@ -806,6 +845,8 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
                seed=3)
     tr = {name: Trainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
           for name, d in (("card", CARD), ("cpu", "cpu"))}
+    pinned = (Trainer("cmp", work / "pinned" / "r", work / "pinned" / "m", device="cpu", **cfg)
+              if pin else None)
     batch, draws = step_batch(cfg["image_size"], tr["cpu"].cfg)
     flags = "+".join(f for f, on in (("GP", apply_gp), ("PL", apply_pl)) if on) or "plain"
     names = ("d_loss", "g_loss", "h_loss") + (("gp_loss",) if apply_gp else ()) \
@@ -813,7 +854,8 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool) -> dict:
     return compare_card_cpu_step(
         tr, lambda t: train_step(t.state, to_device(t.device, batch), to_device(t.device, draws),
                                  t.cfg, apply_gp=apply_gp, apply_pl=apply_pl),
-        names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2")
+        names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2",
+        pinned=pinned)
 
 
 def normed_bias(name: str) -> bool:
@@ -823,8 +865,74 @@ def normed_bias(name: str) -> bool:
     return name.startswith("ED.encoder_blocks.") and name.endswith(("net.0.bias", "net.3.bias"))
 
 
+KINKS = {"leaky_relu": lambda x, m, slope: torch.where(m, x, x * slope),
+         "relu": lambda x, m, slope: torch.where(m, x, torch.zeros_like(x))}
+
+
+@contextlib.contextmanager
+def patched_kinks(wrap):
+    """Within: torch.nn.functional.leaky_relu and relu replaced by
+    ``wrap(kind, real)``; every caller looks them up there when it runs
+    (models/layers.leaky_relu, nn.LeakyReLU, the losses, VGG)."""
+    F = torch.nn.functional
+    real = {kind: getattr(F, kind) for kind in KINKS}
+    for kind in KINKS:
+        setattr(F, kind, wrap(kind, real[kind]))
+    try:
+        yield
+    finally:
+        for kind, fn in real.items():
+            setattr(F, kind, fn)
+
+
+def recorded_kinks(masks: list):
+    """Runs the activations as they are and appends (kind, input > 0) of
+    each call, in order, to ``masks``."""
+    def wrap(kind, real):
+        def fn(x, *args, **kwargs):
+            masks.append((kind, x > 0))
+            return real(x, *args, **kwargs)
+        return fn
+    return patched_kinks(wrap)
+
+
+def pinned_kinks(masks: list, flips: dict):
+    """Runs each activation call with the slope that the same call took
+    in the recorded run (``recorded_kinks``'s ``masks``, consumed in
+    order; a call of another kind or shape fails), and counts into
+    ``flips`` the entries whose own sign disagreed."""
+    calls = iter(masks)
+
+    def wrap(kind, real):
+        def fn(x, negative_slope=0.01, inplace=False):
+            got_kind, m = next(calls, (None, None))
+            check(got_kind == kind and m.shape == x.shape,
+                  f"the pinned run calls {kind} {tuple(x.shape)} where the recorded one called "
+                  f"{got_kind} {None if m is None else tuple(m.shape)}")
+            m = m.to(x.device)
+            flips[kind] = flips.get(kind, 0) + int((m != (x > 0)).sum())
+            return KINKS[kind](x, m, negative_slope)
+        return fn
+    return patched_kinks(wrap)
+
+
+def worst_grad_gap(card: dict, cpu: dict) -> tuple:
+    """{name: gradient} on each side -> (the worst tensor's max|d| over its
+    largest entry, that tensor), biases before an InstanceNorm left out."""
+    worst, name = 0.0, ""
+    for k, g_cpu in cpu.items():
+        if normed_bias(k):  # exact gradient 0: held by NORMED_BIAS_RTOL
+            continue
+        rel = (card[k] - g_cpu).abs().max().item() / max(g_cpu.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, name = rel, k
+    return worst, name
+
+
 def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
-                          exact_grads: Optional[dict] = None) -> dict:
+                          exact_grads: Optional[dict] = None,
+                          pinned: Optional[object] = None,
+                          pinned_rtol: float = PINNED_GRAD_RTOL) -> dict:
     """Runs ``step(trainer)`` on tr['card'] and tr['cpu'] (the same
     weights, checked) and holds the card to the CPU: the losses ``names``
     to STEP_LOSS_RTOL relative, each tensor's applied gradient to
@@ -833,8 +941,11 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
     post-step parameters where the gradient's sign is settled. With
     ``exact_grads`` (the same step's gradients in float64), a tensor beyond
     STEP_GRAD_RTOL passes if the card is no farther from them than the CPU
-    is: the gap is then the CPU's own rounding."""
-    for t in tr.values():
+    is: the gap is then the CPU's own rounding. With ``pinned`` (a third
+    trainer, on the CPU) the card's step records its kinks and ``pinned``
+    replays them; its losses are held to STEP_LOSS_RTOL and its gradients
+    to ``pinned_rtol``."""
+    for t in (*tr.values(), *([pinned] if pinned is not None else [])):
         t.init_GAN()
     start = tr["card"].reference_state_dict()
     check(all(torch.equal(start[k].cpu(), v) for k, v in tr["cpu"].reference_state_dict().items()),
@@ -842,11 +953,37 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
     del start
     before = {f"{p}.{n}": w.detach().clone() for p in prefixes
               for n, w in getattr(tr["cpu"].state, p).named_parameters()}
-    metrics, secs = {}, {}
+    metrics, secs, masks = {}, {}, []
     for name, t in tr.items():
         t0 = time.perf_counter()
-        metrics[name] = {k: v.item() for k, v in step(t).items()}
+        with (recorded_kinks(masks) if name == "card" and pinned is not None
+              else contextlib.nullcontext()):
+            metrics[name] = {k: v.item() for k, v in step(t).items()}
         secs[name] = time.perf_counter() - t0
+    if pinned is not None:
+        flips = {}
+        t0 = time.perf_counter()
+        with pinned_kinks(masks, flips):
+            m_pin = {k: v.item() for k, v in step(pinned).items()}
+        secs["pinned"] = time.perf_counter() - t0
+        n_calls = len(masks)
+        del masks
+        pin_rel, pin_worst = worst_grad_gap(
+            {k: g.detach().cpu() for k, (_, g) in applied_grads(tr["card"], prefixes).items()},
+            {k: g.detach() for k, (_, g) in applied_grads(pinned, prefixes).items()})
+        pin_loss = {k: abs(metrics["card"][k] - m_pin[k]) / abs(m_pin[k]) for k in names}
+        pinned.close()
+        print(f"card vs cpu: {label}, kinks pinned ({n_calls} activation calls; entries whose "
+              f"CPU sign took the card's other slope: "
+              + ", ".join(f"{k} {v}" for k, v in sorted(flips.items()))
+              + "): " + " ".join(f"{k} rel {pin_loss[k]:.2e}" for k in names)
+              + f"; gradients worst tensor rel {pin_rel:.3e} ({pin_worst}), gate "
+              f"{pinned_rtol} (CPU {secs['pinned']:.2f} s)")
+        for k in names:
+            check(pin_loss[k] <= STEP_LOSS_RTOL,
+                  f"card vs pinned CPU {k} within {STEP_LOSS_RTOL} relative ({label})")
+        check(pin_rel <= pinned_rtol, f"card vs pinned CPU gradients within "
+                                      f"{pinned_rtol} of each tensor's largest ({label})")
     loss_rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
                 for k in names}
 
@@ -928,9 +1065,10 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
 
 def phase_card_vs_cpu() -> None:
     """The step-0 step (GP and PL), and as a witness of where the card and
-    the CPU part, the same step without the gradient penalty."""
-    card_vs_cpu_step(apply_gp=True, apply_pl=True)
-    card_vs_cpu_step(apply_gp=False, apply_pl=True)
+    the CPU part, the same step without the gradient penalty; each also
+    with the kinks pinned."""
+    card_vs_cpu_step(apply_gp=True, apply_pl=True, pin=True)
+    card_vs_cpu_step(apply_gp=False, apply_pl=True, pin=True)
 
 
 def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False):
@@ -1365,7 +1503,7 @@ def rehisto_step_batch(size: int) -> dict:
 def phase_rehisto_card_vs_cpu() -> None:
     """R3: the recoloring step-0 step at full width, batch 2, accumulation
     1, on the card and the CPU from the same weights, batch and noise; with
-    the GP, then without. Its gradients reach 8e-2 of a tensor's largest
+    the GP, then without; each also with the kinks pinned. Its gradients reach 8e-2 of a tensor's largest
     entry card vs CPU, so a float64 run on the card says which side the
     gap is on (``compare_card_cpu_step``)."""
     from histogan_tpu_torch.train import rehisto_steps
@@ -1378,6 +1516,8 @@ def phase_rehisto_card_vs_cpu() -> None:
     for apply_gp in (True, False):
         tr = {name: RecoloringTrainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
               for name, d in (("card", CARD), ("cpu", "cpu"))}
+        pinned = RecoloringTrainer("cmp", work / "pinned" / "r", work / "pinned" / "m",
+                                   device="cpu", **cfg)
         draws = rehisto_steps.draw_step(torch.Generator().manual_seed(8), tr["cpu"].cfg, "cpu")
         names = ("d_loss", "g_loss", "h_loss", "r_loss", "var_loss") \
             + (("gp_loss",) if apply_gp else ())
@@ -1387,9 +1527,10 @@ def phase_rehisto_card_vs_cpu() -> None:
                 t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
                 apply_gp, **REHISTO_HYPER),
             names, REHISTO_PARTS,
-            f"reHistoGAN step 0 ({'GP' if apply_gp else 'plain'}) {size} px batch 2", exact)
+            f"reHistoGAN step 0 ({'GP' if apply_gp else 'plain'}) {size} px batch 2", exact,
+            pinned=pinned, pinned_rtol=REHISTO_PINNED_GRAD_RTOL)
         del exact
-        del tr
+        del tr, pinned
         torch.cuda.empty_cache()
 
 
@@ -1691,11 +1832,370 @@ def phase_pool_clis(histogram_cuda, smi) -> dict:
     return launches
 
 
+# ------------------------------------------------------ projection (GAN inversion)
+# P1: the step-0 losses of a projection, card vs CPU, relative (the pixel
+# L1 and the VGG term); the gradients by STEP_GRAD_RTOL and, kinks pinned,
+# PROJECTION_PINNED_GRAD_RTOL; the start render by SLICE_TOL. The loop runs
+# PROJECTION_STEPS on the card, whose last reconstruction loss must lie
+# below the first.
+PROJECTION_STEPS = 50
+PROJECTION_LR = 0.1  # the CLIs' default
+# P2: the JAX bench's protocol (bench.py:257-326): steps/s over perf_out's
+# window, which opens after the first step; 200 steps a run, two runs.
+PROJECTION_BENCH_STEPS = 200
+PROJECTION_BENCH = (("z_space", "gaussian", 0.0), ("style_space", "latent", 0.0),
+                    ("z_space_vgg", "gaussian", 0.001))
+# P3's photo, H x W: the post-processed files take its size (MKL) or pad
+# it to a multiple of 2**pyramid_levels (the pyramid, levels 6: 256 x 320)
+PROJECTION_PHOTO = (200, 300)
+
+
+@contextlib.contextmanager
+def vgg_weights(work: Path):
+    """VGG16_WEIGHTS set to seeded weights at the real shapes
+    (random_vgg16_state(0), as the JAX bench writes them) for the
+    duration; the repo holds no pretrained file."""
+    from histogan_tpu_torch.ops.vgg import random_vgg16_state
+
+    path = work / "vgg16_random.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **random_vgg16_state(0))
+    before = os.environ.get("VGG16_WEIGHTS")
+    os.environ["VGG16_WEIGHTS"] = str(path)
+    try:
+        yield path
+    finally:
+        if before is None:
+            os.environ.pop("VGG16_WEIGHTS")
+        else:
+            os.environ["VGG16_WEIGHTS"] = before
+
+
+def npz_names(v: dict) -> dict:
+    """{npz key: tensor} of a projection's variables (the JAX package's
+    keys)."""
+    out = {}
+    for k, x in v.items():
+        if isinstance(x, list):
+            out.update({f"{'torgb_style' if k == 'torgb' else k}_{i}": y for i, y in enumerate(x)})
+        else:
+            out[k] = x
+    return out
+
+
+@contextlib.contextmanager
+def projection_probe(out: dict, first_step=contextlib.nullcontext, profile=None):
+    """Within, a project_* call records its start render (``render``, the
+    first _forward), the aux of each logged step (``aux``) and step 0's
+    gradients by npz key (``grads``); step 0's forward runs inside
+    ``first_step()``. With ``profile`` ((out dir, name)), one step of the
+    loop is timed and profiled (``profile_fns``) before it runs, and its
+    (device busy ms, busy share) goes to ``profiled``."""
+    from histogan_tpu_torch import projection
+
+    real_run, real_forward = projection._run_optimization, projection._forward
+    stdout = sys.stdout  # the caller's, for the profile's lines
+
+    def forward(*args, **kwargs):
+        rgb = real_forward(*args, **kwargs)
+        out.setdefault("render", rgb.detach().cpu())
+        return rgb
+
+    def run(loss_fn, optimizer, variables, n, log_every, save_every, on_log, on_save, **kw):
+        def loss(v):
+            if "grads" in out:
+                return loss_fn(v)
+            with first_step():
+                return loss_fn(v)
+
+        def log(t, aux):
+            if t == 0:
+                out["grads"] = {k: x.grad.detach().cpu() for k, x in npz_names(variables).items()}
+            out.setdefault("aux", []).append([float(a) for a in aux])
+            on_log(t, aux)
+
+        if profile is not None:
+            def step():
+                optimizer.zero_grad(set_to_none=True)
+                loss_fn(variables)[0].backward()
+                optimizer.step()
+            with contextlib.redirect_stdout(stdout):
+                out["profiled"] = profile_fns({profile[1]: step}, profile[0],
+                                              "projection_")[profile[1]]
+        return real_run(loss, optimizer, variables, n, log_every, save_every, log, on_save, **kw)
+
+    projection._run_optimization, projection._forward = run, forward
+    try:
+        yield out
+    finally:
+        projection._run_optimization, projection._forward = real_run, real_forward
+
+
+def projection_trainer(device: str, work: Path):
+    """The seeded flagship Trainer (seed 0) that the projection phases
+    invert, on ``device``; the interpolation histogram at 150, as the
+    CLIs default to."""
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    t = Trainer("proj", work / "r", work / "m", device=device, hist_resizing="interpolation",
+                hist_insz=150, hist_bin=64, seed=0, **FLAGSHIP)
+    t.init_GAN()
+    return t
+
+
+def project(t, mode: str, photo: Path, results: Path, probe: dict, steps: int,
+            vgg_loss_weight: float = 0.001, **kw):
+    """project_* (``mode``) of ``photo`` by ``t``, ``steps`` steps logged
+    each, inside ``projection_probe(probe, **kw)``; its lines go nowhere."""
+    from histogan_tpu_torch import projection
+
+    fn = projection.project_gaussian if mode == "gaussian" else projection.project_to_latent
+    with projection_probe(probe, **kw), contextlib.redirect_stdout(io.StringIO()):
+        return fn(t, str(photo), results_dir=str(results), num_train_steps=steps,
+                  learning_rate=PROJECTION_LR, save_every=steps, log_every=1,
+                  vgg_loss_weight=vgg_loss_weight, seed=0)
+
+
+def phase_projection_card_vs_cpu(smi) -> None:
+    """P1: both projections, VGG on, card vs CPU from the same weights,
+    photo and draws: the start render, the step-0 losses and gradients
+    (also with the card's kinks pinned on the CPU), then
+    PROJECTION_STEPS steps on the card."""
+    work = WORK / "projection_p1"
+    photo = work / "photo.jpg"
+    write_photo(photo, 21, PROJECTION_PHOTO)
+    with vgg_weights(work):
+        trainers = {"card": projection_trainer(CARD, work / "card"),
+                    "cpu": projection_trainer("cpu", work / "cpu")}
+        start = trainers["card"].reference_state_dict()
+        check(all(torch.equal(start[k].cpu(), v)
+                  for k, v in trainers["cpu"].reference_state_dict().items()),
+              "P1: the same weights on both")
+        del start
+        for mode in ("gaussian", "latent"):
+            masks, flips, runs, secs = [], {}, {}, {}
+            for name, device, steps, first_step in (
+                    ("card", CARD, PROJECTION_STEPS, lambda: recorded_kinks(masks)),
+                    ("cpu", "cpu", 1, contextlib.nullcontext),
+                    ("pinned", "cpu", 1, lambda: pinned_kinks(masks, flips))):
+                t = trainers["card" if name == "card" else "cpu"]
+                runs[name] = {}
+                t0 = time.perf_counter()
+                project(t, mode, photo, work / f"{mode}_{name}", runs[name], steps,
+                        first_step=first_step)
+                secs[name] = time.perf_counter() - t0
+            n_calls = len(masks)
+            del masks
+            card, cpu, pin = runs["card"], runs["cpu"], runs["pinned"]
+            render = (card["render"] - cpu["render"]).abs().max().item()
+            loss_rel = [abs(a - b) / abs(b) for a, b in zip(card["aux"][0][:2], cpu["aux"][0][:2])]
+            pin_loss = [abs(a - b) / abs(b) for a, b in zip(card["aux"][0][:2], pin["aux"][0][:2])]
+            grad_rel, grad_worst = worst_grad_gap(card["grads"], cpu["grads"])
+            pin_rel, pin_worst = worst_grad_gap(card["grads"], pin["grads"])
+            rec = [a[0] for a in card["aux"]]
+            print(f"P1 {mode}: {FLAGSHIP['image_size']} px, VGG on, card vs CPU: start render max|d| {render:.3e} "
+                  f"(gate {SLICE_TOL}); step 0 rec {card['aux'][0][0]:.6f}/{cpu['aux'][0][0]:.6f} "
+                  f"(rel {loss_rel[0]:.2e}), vgg {card['aux'][0][1]:.6f}/{cpu['aux'][0][1]:.6f} "
+                  f"(rel {loss_rel[1]:.2e}; gate {STEP_LOSS_RTOL}); gradients worst variable "
+                  f"rel {grad_rel:.3e} ({grad_worst}; gate {STEP_GRAD_RTOL}); kinks pinned "
+                  f"({n_calls} activation calls; flipped "
+                  + ", ".join(f"{k} {v}" for k, v in sorted(flips.items()))
+                  + f"): losses rel {pin_loss[0]:.2e}/{pin_loss[1]:.2e}, gradients worst "
+                  f"{pin_rel:.3e} ({pin_worst}; gate {PROJECTION_PINNED_GRAD_RTOL}); "
+                  f"{PROJECTION_STEPS} card "
+                  f"steps: rec {rec[0]:.6f} -> {rec[-1]:.6f} (card {secs['card']:.2f} s, CPU "
+                  f"{secs['cpu']:.2f} s, pinned {secs['pinned']:.2f} s) on {smi}")
+            check(render <= SLICE_TOL, f"P1 {mode}: start render within {SLICE_TOL}")
+            check(all(r <= STEP_LOSS_RTOL for r in loss_rel + pin_loss),
+                  f"P1 {mode}: step-0 losses within {STEP_LOSS_RTOL}")
+            check(grad_rel <= STEP_GRAD_RTOL, f"P1 {mode}: gradients within {STEP_GRAD_RTOL}")
+            check(pin_rel <= PROJECTION_PINNED_GRAD_RTOL,
+                  f"P1 {mode}: pinned gradients within {PROJECTION_PINNED_GRAD_RTOL}")
+            check(len(rec) == PROJECTION_STEPS and all(map(math.isfinite, rec)) and rec[-1] < rec[0],
+                  f"P1 {mode}: {PROJECTION_STEPS} finite steps lower the reconstruction loss")
+        for t in trainers.values():
+            t.close()
+    del trainers
+    torch.cuda.empty_cache()
+
+
+def phase_projection_timed(smi, profile: Optional[Path]) -> dict:
+    """P2: projection steps/s on the card under the JAX bench's names, two
+    runs each; with ``profile``, one profiled step of each."""
+    from histogan_tpu_torch import projection
+
+    work = WORK / "projection_p2"
+    rng = np.random.default_rng(0)
+    photo = work / "in.jpg"
+    photo.parent.mkdir(parents=True, exist_ok=True)
+    from PIL import Image
+
+    Image.fromarray((rng.random((256, 256, 3)) * 255).astype(np.uint8)).save(photo)
+    rates = {}
+    with vgg_weights(work):
+        t = projection_trainer(CARD, work)
+        for label, mode, vgg_w in PROJECTION_BENCH:
+            fn = projection.project_gaussian if mode == "gaussian" else projection.project_to_latent
+            runs = []
+            for i in range(2):
+                perf = {}
+                with contextlib.redirect_stdout(io.StringIO()):
+                    fn(t, str(photo), results_dir=str(work / f"res_{label}"),
+                       num_train_steps=PROJECTION_BENCH_STEPS, save_every=PROJECTION_BENCH_STEPS,
+                       log_every=0, chunk_steps=PROJECTION_BENCH_STEPS, vgg_loss_weight=vgg_w,
+                       seed=0, perf_out=perf)
+                check(perf.get("opt_window_steps") == PROJECTION_BENCH_STEPS - 1
+                      and perf.get("opt_steps_per_sec", 0) > 0, f"P2 {label}: a timed window {perf}")
+                runs.append(perf["opt_steps_per_sec"])
+            name = f"projection_{label}_steps_per_sec_256px"
+            rates[name] = runs
+            prof = ""
+            if profile is not None:
+                probe = {}
+                project(t, mode, photo, work / f"prof_{label}", probe, 1, vgg_loss_weight=vgg_w,
+                        profile=(profile, label))
+                busy_ms, share = probe["profiled"]
+                prof = f"; one profiled step: device busy {busy_ms:.2f} ms, busy share {share:.3f}"
+            print(f"P2 {name}: {runs[0]:.2f} and {runs[1]:.2f} steps/s over "
+                  f"{PROJECTION_BENCH_STEPS - 1} steps (fp32, batch 1, "
+                  f"{'VGG on' if vgg_w else 'VGG off'}){prof} on {smi}")
+        t.close()
+    del t
+    torch.cuda.empty_cache()
+    return rates
+
+
+def jax_npz_layout(mode: str, image_size: int, capacity: int, optimize_noise: bool) -> dict:
+    """{key: shape} of the _final.npz that the JAX package's project_*
+    writes without latent noise (histogan_tpu/projection.py:339-347,
+    :488-500)."""
+    from histogan_tpu_torch.models.generator import generator_filters
+
+    pairs = generator_filters(image_size, capacity)
+    nl = len(pairs)
+    if mode == "gaussian":
+        out = {"styles": (1, nl - 2, FLAGSHIP["latent_dim"])}
+    else:
+        out = {}
+        for i in range(nl - 2):
+            out.update({f"style1_{i}": (1, pairs[i][0]), f"style2_{i}": (1, pairs[i][1]),
+                        f"torgb_style_{i}": (1, pairs[i][1])})
+    if optimize_noise:
+        out["in_noise"] = (1, image_size, image_size, 1)
+    return out
+
+
+def phase_projection_clis(histogram_cuda, smi) -> dict:
+    """P3: histogan-projection-gaussian-torch and -to-latent-torch through
+    main([...]) on a saved flagship checkpoint (20 steps, --save_every 10,
+    VGG on), then --generate toward a JPEG, a .npy and a folder, and with
+    --post_recoloring and --upsampling_output (pyramid). Each file the JAX
+    package writes, by name and size; the _final.npz keys and shapes.
+    Returns {path: K1 launches}."""
+    from PIL import Image
+
+    from histogan_tpu_torch.cli import projection_gaussian, projection_to_latent
+    from histogan_tpu_torch.data.dataset import load_rgb
+
+    work = WORK / "projection_p3"
+    photo, target = work / "photo.jpg", work / "targets" / "target.jpg"
+    write_photo(photo, 22, PROJECTION_PHOTO)
+    write_photo(target, 23, (160, 200))
+    np.save(work / "target.npy", plain_hists(load_rgb(target)[None]))
+    np.save(work / "targets" / "pool_entry.npy", plain_hists(load_rgb(photo)[None]))
+    t = projection_trainer(CARD, work)
+    t.save(0)  # models/proj/model_0.pt and its .config.json
+    t.close()
+    del t
+    size = FLAGSHIP["image_size"]
+    common = ["--name", "proj", "--models_dir", str(work / "m"), "--input_image", str(photo),
+              "--device", CARD]
+    launches = {"projection_gaussian": 0, "projection_to_latent": 0, "projection_recolor": 0}
+    with vgg_weights(work):
+        for mode, cli in (("gaussian", projection_gaussian), ("latent", projection_to_latent)):
+            path = f"projection_{'gaussian' if mode == 'gaussian' else 'to_latent'}"
+            results = work / f"results_{mode}"
+            out_dir = results / "proj" / "photo"
+            args = [*common, "--results_dir", str(results)]
+            reset_counts(histogram_cuda)
+            t0 = time.perf_counter()
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                cli.main([*args, "--num_train_steps", "20", "--save_every", "10"])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            launches[path] = histogram_cuda.launches
+            logged = [l for l in buf.getvalue().splitlines() if l.startswith("Optimization step")]
+            vgg = [float(l.split("vgg loss = ")[1].split(",")[0]) for l in logged]
+            want = {f"photo_{k}.{e}" for k in ("10", "20", "final") for e in ("jpg", "npz")}
+            want.add("photo_start.jpg")
+            got = {p.name for p in out_dir.iterdir()}
+            check(got == want, f"P3 {mode}: the files JAX writes {sorted(want)}, got {sorted(got)}")
+            check(all(Image.open(out_dir / f).size == (size, size) for f in want
+                      if f.endswith(".jpg")), f"P3 {mode}: every jpg {size}x{size}")
+            layout = jax_npz_layout(mode, size, FLAGSHIP["network_capacity"], optimize_noise=False)
+            for f in ("photo_10.npz", "photo_20.npz", "photo_final.npz"):
+                with np.load(out_dir / f) as npz:
+                    shapes = {k: npz[k].shape for k in npz.files}
+                    finite = all(np.isfinite(npz[k]).all() for k in npz.files)
+                check(shapes == layout and finite,
+                      f"P3 {mode}: {f} keys and shapes as JAX's {layout}: {shapes}")
+            check(len(logged) == 20 and all(v > 0 for v in vgg),
+                  f"P3 {mode}: 20 logged steps with the VGG term on")
+            print(f"P3 {path}: 20 steps (VGG on) in {secs:.2f} s through main(); files "
+                  f"{sorted(got)}; _final.npz {layout}; K1 launches {launches[path]} on {smi}")
+
+            runs = [("JPEG", target, {}), ("npy", work / "target.npy", {}),
+                    ("folder", work / "targets", {})]
+            if mode == "gaussian":
+                runs += [("JPEG, --post_recoloring", target, {"--post_recoloring": "True"}),
+                         ("JPEG, --upsampling_output pyramid", target,
+                          {"--upsampling_output": "True", "--upsampling_method": "pyramid"})]
+            for what, hist_src, extra in runs:
+                for old in out_dir.glob("generated-*.jpg"):  # names stamped to the second
+                    old.unlink()
+                reset_counts(histogram_cuda)
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    cli.main([*args, "--generate", "True", "--target_hist", str(hist_src),
+                              *[x for kv in extra.items() for x in kv]])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                k1 = histogram_cuda.launches
+                launches["projection_recolor"] += k1
+                made = sorted(out_dir.glob("generated-*.jpg"))
+                sources = [hist_src] if what != "folder" else sorted(
+                    p for p in hist_src.iterdir() if p.is_file())
+                h, w = PROJECTION_PHOTO
+                if "--post_recoloring" in extra:
+                    want_size = (w, h)
+                elif "--upsampling_output" in extra:
+                    m = 2 ** 6  # the CLIs' default --pyramid_levels
+                    want_size = (-(-w // m) * m, -(-h // m) * m)
+                else:
+                    want_size = (size, size)
+                names = [f"generated-photo{Path(s).stem}-" for s in sources]
+                check(len(made) == len(sources)
+                      and sorted(any(p.name.startswith(n) for p in made) for n in names)
+                      == [True] * len(names)
+                      and all(Image.open(p).size == want_size for p in made),
+                      f"P3 {mode} --generate toward a {what}: {[p.name for p in made]}, sizes "
+                      f"{[Image.open(p).size for p in made]}, want {names} at {want_size}")
+                check(k1 == sum(Path(s).suffix == ".jpg" for s in sources),
+                      f"P3 {mode} --generate toward a {what}: K1 once per image target ({k1})")
+                print(f"P3 {path} --generate toward a {what}: {[p.name for p in made]} at "
+                      f"{want_size} in {secs:.2f} s; K1 launches {k1}")
+    check(all(v >= 1 for v in launches.values()), f"P3: K1 on every projection path {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
                         help="also profile the train step; tables under DIR")
     profile = parser.parse_args(argv).profile
+    t_start = time.perf_counter()
     # ---- 1. device
     if not torch.cuda.is_available():
         print("device: torch.cuda.is_available() is False; this smoke run needs a GPU",
@@ -1734,6 +2234,9 @@ def main(argv=None) -> int:
     counts_re, rate_re = timed("R2", phase_rehisto_train, histogram_cuda, smi, profile)
     counts_re_bf16, _ = timed("R2b", phase_rehisto_train, histogram_cuda, smi, profile,
                               REHISTO_BF16, rate_re)
+    timed("P2", phase_projection_timed, smi, profile)
+    counts_projection = timed("P3", phase_projection_clis, histogram_cuda, smi)
+    timed("P1", phase_projection_card_vs_cpu, smi)
     timed("9", phase_card_vs_cpu)
     timed("9b", phase_bf16_step)
     timed("R3", phase_rehisto_card_vs_cpu)
@@ -1744,6 +2247,7 @@ def main(argv=None) -> int:
           f"K1 on the recolor paths ({counts_recolor}, bf16 {counts_recolor_bf16}), K1 and K2 "
           f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16})")
     shutil.rmtree(WORK, ignore_errors=True)
+    print(f"seconds: total {time.perf_counter() - t_start:.2f}")
 
     def main_row(rows):  # the training path's shape
         row = next(r for r in rows if (r["B"], r["N"]) == MAIN_SHAPE)
@@ -1762,7 +2266,8 @@ def main(argv=None) -> int:
                               "recolor_bf16": counts_recolor_bf16["histogram_fwd"],
                               "rehisto_training_bf16": counts_re_bf16["histogram_fwd"],
                               "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
-                              "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"]},
+                              "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"],
+                              **counts_projection},
          "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
          "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",

@@ -1,4 +1,4 @@
-"""Image grid saving (copied from ``histogan_tpu/utils/image_io.py``).
+"""Image and image-grid saving (copied from ``histogan_tpu/utils/image_io.py``).
 PIL is imported only when a file is written."""
 
 from __future__ import annotations
@@ -36,3 +36,12 @@ def save_image_grid(images: np.ndarray, path, nrow: int = 8) -> None:
     if grid.shape[-1] == 1:
         grid = np.repeat(grid, 3, axis=-1)
     Image.fromarray((grid[..., :3] * 255).astype(np.uint8)).save(str(path))
+
+
+def save_image(image: np.ndarray, path) -> None:
+    """Single (H, W, C) [0,1] image."""
+    from PIL import Image
+
+    arr = np.clip(np.asarray(image), 0.0, 1.0)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray((arr[..., :3] * 255).astype(np.uint8)).save(str(path))
