@@ -32,6 +32,24 @@ Phases, each printing its lines:
      with one more step on the EMA schedule, whose stochastically rounded
      EMA is held to the exact fp32 EMA; the dtypes of the weights, the EMA
      and the optimizer state are checked before and after the resume;
+  D1. the discriminator's options: phase 8's 10 steps, save, load and one
+     more step with aug_prob 0.25 (color, translation, cutout, offset),
+     attention at layers 1-2 and a VQ codebook of 256 codes at layer 3,
+     fp32; the codebook bit for bit across the save and load, the plain
+     steps' imgs/s beside phase 8's, the GP steps' ms and the peak memory,
+     each attention pair's and the VQ layer's forward and backward alone,
+     and (torch.profiler) the GP step's device busy time;
+  D1b. the same in bf16 (precision, opt_state_dtype, ema_dtype) with VQ
+     at layer 8, the last block: the only VQ placement the JAX package
+     runs under bf16 (the port refuses the others);
+  D1r. the recoloring step with attention at layers 1-2 and VQ at layer 3
+     at the CLI's batch 2 x accumulation 8, 3 steps; a D phase moves the
+     codebook and a G phase leaves it as it is;
+  D1c. card vs CPU: phase 9's step-0 step (GP and PL) with D1's options
+     and aug_prob 1 (every augmentation function runs), the CPU run
+     replaying the card's kinks and VQ codes (the rows whose own code
+     differs are counted) and held to phase 9's pinned gates in form, the
+     codebook after the step to CODEBOOK_RTOL;
   9. card vs CPU: one step-0 train step (GP and PL) at full width and
      batch 2 on both devices from the same weights, batch and draws, and
      once more on the CPU with the kinks pinned: every leaky_relu and relu
@@ -90,8 +108,8 @@ Phases, each printing its lines:
      with --post_recoloring and with --upsampling_output (pyramid): each
      file the JAX package writes, by name and size, the npz keys and shapes
      as JAX's; K1 counted on each path.
-R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b, before the phases
-that run steps on the CPU. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
+D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b,
+before the phases that run steps on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
 too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
 the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
 a pool entry.
@@ -248,6 +266,26 @@ REHISTO_BF16_GRAD_COS = BF16_GRAD_COS
 NOISE_FACTOR = 3.0
 # H1: the pools, card against CPU: the repo's histogram gate, L1 per histogram
 HIST_L1 = 1e-5
+# D1 / D1b: the discriminator's options at the flagship width. D1b keeps
+# VQ at the last block, the only place the JAX package runs it under bf16
+D_OPTIONS = dict(aug_prob=0.25, aug_types=("color", "translation", "cutout", "offset"),
+                 attn_layers=(1, 2), fq_layers=(3,), fq_dict_size=256)
+D_OPTIONS_BF16 = dict(D_OPTIONS, fq_layers=(8,), **BF16)
+# D1's card vs CPU step runs every augmentation function (the gate always on)
+D_OPTIONS_CMP = dict(D_OPTIONS, aug_prob=1.0)
+# Card vs pinned CPU codebook after the step, relative to each buffer's
+# largest entry: with the card's codes replayed, the EMA update sums the
+# same rows of D's features, which differ by fp32 rounding. Measured
+# (NVIDIA H100 80GB HBM3, 700 W, D1c): 8.177e-7 (embed_avg); about 6 times.
+CODEBOOK_RTOL = 5e-6
+# D1c's gradients with the kinks and codes pinned, per tensor relative to
+# its largest entry (PINNED_GRAD_RTOL's form). The worst tensor is a
+# Rezero gate g of the attention at layer 2: a scalar whose gradient is one
+# sum over every activation of that layer, taken through the GP's double
+# backward, so it is held relative to itself. Measured (NVIDIA H100 80GB
+# HBM3, 700 W): 1.740e-4 (D.attn_blocks.1.0.fn.g; 44 leaky_relu entries
+# flipped); about 3 times, as REHISTO_PINNED_GRAD_RTOL.
+D_OPTIONS_PINNED_GRAD_RTOL = 5e-4
 CARD = "cuda"  # the device under test
 
 
@@ -619,15 +657,20 @@ def check_ema_step(t, tag: str) -> None:
 
 
 def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[dict] = None,
-                fp32_rate: Optional[float] = None):
-    """Phase 8 (fp32) or, with ``policy`` (BF16), phase 8b."""
+                fp32_rate: Optional[float] = None, tag: Optional[str] = None):
+    """Phase 8 (fp32) or, with ``policy`` (BF16), phase 8b; with the
+    discriminator's options in ``policy`` (D_OPTIONS, D_OPTIONS_BF16) and
+    a ``tag``, D1 and D1b: the codebook across the save and load, the GP
+    step's device time and the attention and VQ layers' times too."""
     from histogan_tpu_torch.train.trainer import Trainer
 
     policy = policy or {}
     label = policy.get("precision", "fp32")
-    tag = "train" if label == "fp32" else f"train {label}"
-    work = WORK / f"train_{label}"
-    write_images(work / "data")
+    tag = tag or ("train" if label == "fp32" else f"train {label}")
+    work = WORK / f"train_{tag.replace(' ', '_')}"
+    data = WORK / "images"  # phase 8's 64 JPEGs, written once
+    if not data.is_dir():
+        write_images(data)
     cfg = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1, hist_resizing="sampling",
                seed=0, save_every=1000, **policy)
     t = Trainer("train", work / "results", work / "models", device=CARD, **cfg)
@@ -638,7 +681,7 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
 
     reset_counts(histogram_cuda)
     t0 = time.perf_counter()
-    t.set_data_src(str(work / "data"))
+    t.set_data_src(str(data))
     pool_s = time.perf_counter() - t0
     pool_launches = histogram_cuda.launches
     step_ms = []
@@ -672,13 +715,22 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     print(f"{tag}: K1 launches {pool_launches} in the pool build, "
           f"{counts['histogram_fwd'] - pool_launches} in the 10 steps; K2 launches "
           f"{counts['histogram_bwd']} in the 10 steps")
-    if policy:
+    options = bool(policy.get("attn_layers") or policy.get("fq_layers"))
+    if options:
+        print(f"{tag}: GP steps 0/4/8 {step_ms[0]:.2f}/{step_ms[4]:.2f}/{step_ms[8]:.2f} ms "
+              f"(step 0 with PL, save and evaluate); options {json.dumps(d_keys(policy))}")
+        option_ops_ms(t, tag)
+    if policy.get("ema_dtype") == "bf16":
         check_ema_step(t, tag)
 
+    prefix = "" if tag == "train" else tag.replace("train ", "").replace(" ", "_") + "_"
     if profile is not None:
-        profile_steps(t, profile, "" if label == "fp32" else f"{label}_")
+        profile_steps(t, profile, prefix)
+    elif options:  # the GP step's device time, also without --profile: one profiled step
+        profile_fns({"gp": train_step_fn(t, True, False)}, WORK / "prof", prefix, timed=0)
 
     # save, load into a new Trainer, one more step
+    book = {k: v.detach().clone() for k, v in t.state.D.named_buffers()}
     t.save(1)
     pl_mean, opt_steps = t.state.pl_mean.item(), t.state.step
     t.close()
@@ -688,9 +740,14 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     r.load(-1)
     check(r.state.step == opt_steps and r.steps == cfg["save_every"],
           f"step counters carried over ({r.state.step}, {r.steps})")
+    loaded = dict(r.state.D.named_buffers())
+    check(set(loaded) == set(book) and all(torch.equal(loaded[k], v) for k, v in book.items()),
+          f"the codebook bit for bit across the save and load ({len(book)} buffers)")
+    check(len(book) == 3 * len(policy.get("fq_layers", ())), "three buffers per VQ layer")
+    del book
     check(r.state.pl_mean.item() == pl_mean, f"pl_mean carried over ({r.state.pl_mean.item()})")
     check_dtypes(r, policy)
-    r.set_data_src(str(work / "data"))
+    r.set_data_src(str(data))
     m = r.train()
     r.close()
     check(all(math.isfinite(v) for v in m.values()) and r.state.step == opt_steps + 1,
@@ -703,20 +760,63 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     return counts, rate, peak
 
 
+def d_keys(policy: dict) -> dict:
+    """The discriminator's options in ``policy``."""
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in policy.items()
+            if k in D_OPTIONS}
+
+
+def train_step_fn(t, gp: bool, pl: bool):
+    """One train step of trainer ``t`` with the given flags on one batch,
+    with fresh draws each call."""
+    from histogan_tpu_torch.train.steps import draw_step, train_step
+
+    batch = t._device_batch(next(t.loader))
+    return lambda: train_step(t.state, batch, draw_step(t.gen, t.cfg, t.device, pl,
+                                                        coins=t.coin_gen), t.cfg, gp, pl)
+
+
 def profile_steps(t, out: Path, prefix: str = "") -> None:
     """Times and a torch.profiler view of the flagship step by its flags:
     plain, GP (every 4th), GP+PL (step 0 of every 32); the operator tables
     go to ``out``, their names led by ``prefix``."""
-    from histogan_tpu_torch.train.steps import draw_step, train_step
+    profile_fns({"plain": train_step_fn(t, False, False), "gp": train_step_fn(t, True, False),
+                 "gp+pl": train_step_fn(t, True, True)}, out, prefix)
 
-    batch = t._device_batch(next(t.loader))
 
-    def step(gp, pl):
-        return lambda: train_step(t.state, batch, draw_step(t.gen, t.cfg, t.device, pl), t.cfg,
-                                  gp, pl)
+def option_ops_ms(t, tag: str) -> None:
+    """Forward and backward (to the input and the weights) of each
+    attention pair and VQ layer of ``t``'s D alone, at the inputs a batch
+    of 16 gives them, in the step's compute dtype (CUDA events; the VQ
+    layer on a copy, updating its codebook as the step does)."""
+    from histogan_tpu_torch.train.steps import cast_module, compute_dtype
 
-    profile_fns({"plain": step(False, False), "gp": step(True, False),
-                 "gp+pl": step(True, True)}, out, prefix)
+    D, dtype = t.state.D, compute_dtype(t.cfg)
+    x = torch.rand(16, 3, t.cfg.image_size, t.cfg.image_size, device=t.device, dtype=dtype)
+    parts = []
+    with torch.no_grad():
+        for ind, (block, attn, vq) in enumerate(zip(D.blocks, D.attn_blocks, D.quantize_blocks)):
+            x = cast_module(block, dtype)(x)
+            if attn is not None:
+                parts.append((f"attention layer {ind + 1}", attn, x.clone()))
+                x = cast_module(attn, dtype)(x)
+            if vq is not None:
+                parts.append((f"VQ layer {ind + 1}", copy.deepcopy(vq), x.clone()))
+                x = vq(x)[0]
+    out = []
+    for name, module, inp in parts:
+        inp.requires_grad_(True)
+        wrt = [inp, *module.parameters()]
+
+        def call(module=module, inp=inp, wrt=wrt):
+            if isinstance(module, torch.nn.Sequential):  # an attention pair
+                y, q = cast_module(module, dtype)(inp), 0.0
+            else:
+                y, q = module(inp, True)
+            return torch.autograd.grad(y.float().sum() + q, wrt)
+
+        out.append(f"{name} {tuple(inp.shape)} {time_ms(call, 5):.3f} ms")
+    print(f"{tag}: forward + backward alone (CUDA events, {dtype}): " + "; ".join(out))
 
 
 def trace_device_ms(trace: Path, window: str) -> dict:
@@ -742,9 +842,9 @@ def trace_device_ms(trace: Path, window: str) -> dict:
             "streams": len({e.get("args", {}).get("stream") for e in inside})}
 
 
-def profile_fns(fns: dict, out: Path, prefix: str) -> dict:
-    """For each {name: step function}: three host-clock runs and one under
-    torch.profiler. The device's busy time is the union of the kernel,
+def profile_fns(fns: dict, out: Path, prefix: str, timed: int = 3) -> dict:
+    """For each {name: step function}: a warm-up (when ``timed``), ``timed``
+    host-clock runs and one under torch.profiler. The device's busy time is the union of the kernel,
     copy and set intervals of that call in the profiler's trace
     (``trace_device_ms``); the operator table goes to ``out`` and the
     kernels with the most device time are printed. Returns {name: (device
@@ -755,15 +855,17 @@ def profile_fns(fns: dict, out: Path, prefix: str) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     result = {}
     for name, fn in fns.items():
-        fn()
+        if timed:
+            fn()
         torch.cuda.synchronize()
         ms = []
-        for _ in range(3):
+        for _ in range(timed):
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             ms.append(1e3 * (time.perf_counter() - t0))
-        print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
+        if ms:
+            print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             with record_function("profiled_call"):
@@ -808,8 +910,8 @@ def to_device(d, x):
         return x.to(d)
     if isinstance(x, dict):
         return {k: to_device(d, v) for k, v in x.items()}
-    if isinstance(x, list):
-        return [to_device(d, v) for v in x]
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_device(d, v) for v in x)
     if dataclasses.is_dataclass(x):
         return type(x)(**{f.name: to_device(d, getattr(x, f.name)) for f in dataclasses.fields(x)})
     return x
@@ -833,29 +935,37 @@ def step_batch(size: int, cfg):
     return batch, draw_step(torch.Generator().manual_seed(8), cfg, "cpu", apply_pl=True)
 
 
-def card_vs_cpu_step(apply_gp: bool, apply_pl: bool, pin: bool = False) -> dict:
+def card_vs_cpu_step(apply_gp: bool, apply_pl: bool, pin: bool = False,
+                     options: Optional[dict] = None) -> dict:
     """One train step with the given flags at full width and batch 2 on the
     card and on the CPU, from the same weights, batch and draws; with
-    ``pin``, on the CPU once more with the card's kinks."""
+    ``pin``, on the CPU once more with the card's kinks (and VQ codes);
+    with ``options``, the discriminator's (D1)."""
     from histogan_tpu_torch.train.steps import train_step
     from histogan_tpu_torch.train.trainer import Trainer
 
+    options = options or {}
     work = WORK / "card_vs_cpu"
     cfg = dict(FLAGSHIP, batch_size=2, gradient_accumulate_every=1, hist_resizing="sampling",
-               seed=3)
+               seed=3, **options)
     tr = {name: Trainer("cmp", work / name / "r", work / name / "m", device=d, **cfg)
           for name, d in (("card", CARD), ("cpu", "cpu"))}
+    # with the options the CPU run itself is the pinned one (pin_cpu)
     pinned = (Trainer("cmp", work / "pinned" / "r", work / "pinned" / "m", device="cpu", **cfg)
-              if pin else None)
+              if pin and not options else None)
     batch, draws = step_batch(cfg["image_size"], tr["cpu"].cfg)
     flags = "+".join(f for f, on in (("GP", apply_gp), ("PL", apply_pl)) if on) or "plain"
     names = ("d_loss", "g_loss", "h_loss") + (("gp_loss",) if apply_gp else ()) \
-        + (("pl_mean",) if apply_pl else ())
+        + (("pl_mean",) if apply_pl else ()) + (("q_loss",) if options.get("fq_layers") else ())
+    check(not options or all(a.apply for pair in draws.d_aug for a in pair),
+          "every augmentation function runs")
     return compare_card_cpu_step(
         tr, lambda t: train_step(t.state, to_device(t.device, batch), to_device(t.device, draws),
                                  t.cfg, apply_gp=apply_gp, apply_pl=apply_pl),
-        names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2",
-        pinned=pinned)
+        names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2"
+        + (f" with {json.dumps(d_keys(options))}" if options else ""), pinned=pinned,
+        pinned_rtol=D_OPTIONS_PINNED_GRAD_RTOL if options else PINNED_GRAD_RTOL,
+        pin_cpu=bool(options))
 
 
 def normed_bias(name: str) -> bool:
@@ -870,46 +980,66 @@ KINKS = {"leaky_relu": lambda x, m, slope: torch.where(m, x, x * slope),
 
 
 @contextlib.contextmanager
-def patched_kinks(wrap):
-    """Within: torch.nn.functional.leaky_relu and relu replaced by
-    ``wrap(kind, real)``; every caller looks them up there when it runs
-    (models/layers.leaky_relu, nn.LeakyReLU, the losses, VGG)."""
-    F = torch.nn.functional
-    real = {kind: getattr(F, kind) for kind in KINKS}
-    for kind in KINKS:
-        setattr(F, kind, wrap(kind, real[kind]))
+def patched_kinks(wrap, kinds=(*KINKS, "vq")):
+    """Within: torch.nn.functional.leaky_relu and relu, and the VQ layers'
+    choice of code (``VectorQuantize.nearest``), replaced by ``wrap(kind,
+    real)`` for each of ``kinds``; every caller looks them up there when it
+    runs (models/layers.leaky_relu, nn.LeakyReLU, the losses, VGG, the VQ
+    forward)."""
+    from histogan_tpu_torch.models.vq import VectorQuantize
+
+    owners = {kind: torch.nn.functional for kind in KINKS}
+    owners["vq"] = VectorQuantize
+    names = {"vq": "nearest"}
+    real = {kind: getattr(owners[kind], names.get(kind, kind)) for kind in kinds}
+    for kind in kinds:
+        fn = wrap(kind, real[kind])
+        setattr(owners[kind], names.get(kind, kind), staticmethod(fn) if kind == "vq" else fn)
     try:
         yield
     finally:
         for kind, fn in real.items():
-            setattr(F, kind, fn)
+            setattr(owners[kind], names.get(kind, kind), staticmethod(fn) if kind == "vq" else fn)
 
 
-def recorded_kinks(masks: list):
-    """Runs the activations as they are and appends (kind, input > 0) of
-    each call, in order, to ``masks``."""
+def recorded_kinks(masks: list, kinds=(*KINKS, "vq")):
+    """Runs the activations and the VQ lookups as they are and appends
+    (kind, input > 0) of each activation call, (kind, codes) of each
+    lookup, in order, to ``masks``."""
     def wrap(kind, real):
         def fn(x, *args, **kwargs):
-            masks.append((kind, x > 0))
-            return real(x, *args, **kwargs)
+            out = real(x, *args, **kwargs)
+            masks.append((kind, out.clone() if kind == "vq" else x > 0))
+            return out
         return fn
-    return patched_kinks(wrap)
+    return patched_kinks(wrap, kinds)
 
 
 def pinned_kinks(masks: list, flips: dict):
     """Runs each activation call with the slope that the same call took
-    in the recorded run (``recorded_kinks``'s ``masks``, consumed in
-    order; a call of another kind or shape fails), and counts into
-    ``flips`` the entries whose own sign disagreed."""
+    in the recorded run, and each VQ lookup with the codes it chose there
+    (``recorded_kinks``'s ``masks``, consumed in order; a call of another
+    kind or shape fails), and counts into ``flips`` the entries whose own
+    sign, or the rows whose own nearest code, disagreed."""
     calls = iter(masks)
 
+    def take(kind, shape):
+        got_kind, m = next(calls, (None, None))
+        check(got_kind == kind and m.shape == shape,
+              f"the pinned run calls {kind} {tuple(shape)} where the recorded one called "
+              f"{got_kind} {None if m is None else tuple(m.shape)}")
+        return m
+
     def wrap(kind, real):
+        if kind == "vq":
+            def nearest(dist):
+                codes = take(kind, dist.shape[:1]).to(dist.device)
+                flips[kind] = flips.get(kind, 0) + int((codes != real(dist)).sum())
+                return codes
+            return nearest
+
         def fn(x, negative_slope=0.01, inplace=False):
-            got_kind, m = next(calls, (None, None))
-            check(got_kind == kind and m.shape == x.shape,
-                  f"the pinned run calls {kind} {tuple(x.shape)} where the recorded one called "
-                  f"{got_kind} {None if m is None else tuple(m.shape)}")
-            m = m.to(x.device)
+            m = take(kind, x.shape).to(x.device)
             flips[kind] = flips.get(kind, 0) + int((m != (x > 0)).sum())
             return KINKS[kind](x, m, negative_slope)
         return fn
@@ -932,7 +1062,7 @@ def worst_grad_gap(card: dict, cpu: dict) -> tuple:
 def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
                           exact_grads: Optional[dict] = None,
                           pinned: Optional[object] = None,
-                          pinned_rtol: float = PINNED_GRAD_RTOL) -> dict:
+                          pinned_rtol: float = PINNED_GRAD_RTOL, pin_cpu: bool = False) -> dict:
     """Runs ``step(trainer)`` on tr['card'] and tr['cpu'] (the same
     weights, checked) and holds the card to the CPU: the losses ``names``
     to STEP_LOSS_RTOL relative, each tensor's applied gradient to
@@ -943,47 +1073,82 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
     STEP_GRAD_RTOL passes if the card is no farther from them than the CPU
     is: the gap is then the CPU's own rounding. With ``pinned`` (a third
     trainer, on the CPU) the card's step records its kinks and ``pinned``
-    replays them; its losses are held to STEP_LOSS_RTOL and its gradients
-    to ``pinned_rtol``."""
+    replays them; its losses are held to STEP_LOSS_RTOL, its gradients
+    to ``pinned_rtol`` and D's codebook after the step to CODEBOOK_RTOL.
+    The VQ codes are replayed too: where the CPU's own lookup takes another
+    code for some row (``code_flips``, counted on the unpinned CPU run),
+    its losses move by a whole code, so the unpinned gates are left to the
+    pinned run, which replays the card's codes. With ``pin_cpu`` there is
+    no third trainer: tr['cpu'] itself replays the card's kinks and codes
+    and takes both the pinned gates and the others."""
     for t in (*tr.values(), *([pinned] if pinned is not None else [])):
         t.init_GAN()
+    if pin_cpu:
+        pinned = tr["cpu"]
     start = tr["card"].reference_state_dict()
     check(all(torch.equal(start[k].cpu(), v) for k, v in tr["cpu"].reference_state_dict().items()),
           "same weights on both")
     del start
     before = {f"{p}.{n}": w.detach().clone() for p in prefixes
               for n, w in getattr(tr["cpu"].state, p).named_parameters()}
-    metrics, secs, masks = {}, {}, []
+    metrics, secs, masks, cpu_codes, flips = {}, {}, [], [], {}
     for name, t in tr.items():
         t0 = time.perf_counter()
         with (recorded_kinks(masks) if name == "card" and pinned is not None
+              else pinned_kinks(masks, flips) if name == "cpu" and pin_cpu
+              else recorded_kinks(cpu_codes, ("vq",)) if name == "cpu"
               else contextlib.nullcontext()):
             metrics[name] = {k: v.item() for k, v in step(t).items()}
         secs[name] = time.perf_counter() - t0
+    card_codes = [m for k, m in masks if k == "vq"]
+    code_rows = sum(a.numel() for a in card_codes)
+    if pin_cpu:  # the CPU's own lookups, counted while it replayed the card's
+        code_flips = flips.get("vq", 0)
+    else:
+        check(len(card_codes) == len(cpu_codes), "as many VQ lookups on both")
+        code_flips = sum(int((a.cpu() != b).sum()) for a, (_, b) in zip(card_codes, cpu_codes))
+    del card_codes, cpu_codes
     if pinned is not None:
-        flips = {}
-        t0 = time.perf_counter()
-        with pinned_kinks(masks, flips):
-            m_pin = {k: v.item() for k, v in step(pinned).items()}
-        secs["pinned"] = time.perf_counter() - t0
+        if pin_cpu:
+            m_pin, secs["pinned"] = metrics["cpu"], secs["cpu"]
+        else:
+            t0 = time.perf_counter()
+            with pinned_kinks(masks, flips):
+                m_pin = {k: v.item() for k, v in step(pinned).items()}
+            secs["pinned"] = time.perf_counter() - t0
         n_calls = len(masks)
         del masks
         pin_rel, pin_worst = worst_grad_gap(
             {k: g.detach().cpu() for k, (_, g) in applied_grads(tr["card"], prefixes).items()},
             {k: g.detach() for k, (_, g) in applied_grads(pinned, prefixes).items()})
         pin_loss = {k: abs(metrics["card"][k] - m_pin[k]) / abs(m_pin[k]) for k in names}
-        pinned.close()
+        book_rel = {k: (v.cpu() - pinned.state.D.get_buffer(k)).abs().max().item()
+                    / max(v.abs().max().item(), 1e-30)
+                    for k, v in tr["card"].state.D.named_buffers()}
+        if not pin_cpu:
+            pinned.close()
         print(f"card vs cpu: {label}, kinks pinned ({n_calls} activation calls; entries whose "
               f"CPU sign took the card's other slope: "
               + ", ".join(f"{k} {v}" for k, v in sorted(flips.items()))
               + "): " + " ".join(f"{k} rel {pin_loss[k]:.2e}" for k in names)
               + f"; gradients worst tensor rel {pin_rel:.3e} ({pin_worst}), gate "
-              f"{pinned_rtol} (CPU {secs['pinned']:.2f} s)")
+              f"{pinned_rtol}"
+              + (f"; codebook after the step worst buffer rel {max(book_rel.values()):.3e} "
+                 f"({max(book_rel, key=book_rel.get)}), gate {CODEBOOK_RTOL}" if book_rel else "")
+              + f" (CPU {secs['pinned']:.2f} s)")
         for k in names:
             check(pin_loss[k] <= STEP_LOSS_RTOL,
                   f"card vs pinned CPU {k} within {STEP_LOSS_RTOL} relative ({label})")
         check(pin_rel <= pinned_rtol, f"card vs pinned CPU gradients within "
                                       f"{pinned_rtol} of each tensor's largest ({label})")
+        check(all(v <= CODEBOOK_RTOL for v in book_rel.values()),
+              f"card vs pinned CPU codebook within {CODEBOOK_RTOL} of each buffer's largest "
+              f"({label})")
+    if code_rows:
+        print(f"card vs cpu: {label}: {code_flips} of {code_rows} VQ rows took another code on "
+              f"the CPU" + ("" if pin_cpu else "; the unpinned gates are left to the pinned run"
+                            if code_flips else ""))
+    check(not code_flips or pinned is not None, "code flips are held by a pinned run")
     loss_rel = {k: abs(metrics["card"][k] - metrics["cpu"][k]) / abs(metrics["cpu"][k])
                 for k in names}
 
@@ -1046,7 +1211,12 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
         print(f"card vs cpu:   {k}: card vs CPU {rel:.3e}; against the float64 step card "
               f"{card_exact:.3e}, CPU {cpu_exact:.3e}")
     for k in names:
-        check(math.isfinite(metrics["card"][k]) and loss_rel[k] <= STEP_LOSS_RTOL,
+        check(math.isfinite(metrics["card"][k]), f"card {k} finite ({label})")
+    r["code_flips"] = code_flips
+    if code_flips and not pin_cpu:  # with pin_cpu the CPU took the card's codes
+        return r
+    for k in names:
+        check(loss_rel[k] <= STEP_LOSS_RTOL,
               f"card vs CPU {k} within {STEP_LOSS_RTOL} relative ({label})")
     if exact_grads is None:
         check(r["grad_rel"] <= STEP_GRAD_RTOL,
@@ -1468,6 +1638,56 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
     del t
     torch.cuda.empty_cache()
     return counts, rate
+
+
+def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
+    """D1r: the recoloring step with the discriminator's attention (layers
+    1-2) and VQ (layer 3) at the CLI's batch 2 x accumulation 8: steps 0-2
+    (GP, save and evaluate at 0), K1 and K2 per step as R2's; then one D
+    phase moves the codebook and one G phase leaves it as it is (the
+    recoloringTrainer's G phase does not update it). Returns {kernel:
+    launches in the 3 steps}."""
+    from histogan_tpu_torch.train import rehisto_steps
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    tag = "rehisto d options"
+    work = WORK / "rehisto_d_options"
+    data = WORK / "images"  # phase 8's 64 JPEGs
+    if not data.is_dir():
+        write_images(data)
+    options = {k: v for k, v in D_OPTIONS.items() if not k.startswith("aug")}
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
+               save_every=1000, **options)
+    t = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
+    t.init_GAN()
+    t.set_data_src(str(data), sampling=True)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(histogram_cuda)
+    step_ms, per_step = rehisto_steps_run(t, tag, 3, histogram_cuda)
+    counts = {"histogram_fwd": histogram_cuda.launches,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    accum = cfg["gradient_accumulate_every"]
+    check(all(p == (2 * accum, accum) for p in per_step),
+          f"K1 and K2 launched {2 * accum} and {accum} times a step: {per_step}")
+    batch = t._device_batch(next(t.loader))
+    draws = rehisto_steps.draw_step(t.gen, t.cfg, t.device)
+    book = {k: v.clone() for k, v in t.state.D.named_buffers()}
+    rehisto_steps.d_phase(t.state, batch, draws, t.cfg, apply_gp=False)
+    moved = {k: v.clone() for k, v in t.state.D.named_buffers()}
+    rehisto_steps.g_phase(t.state, batch, draws, t.cfg, **REHISTO_HYPER)
+    check(len(book) == 3 and any(not torch.equal(moved[k], v) for k, v in book.items()),
+          "the D phase moves the codebook")
+    check(all(torch.equal(v, moved[k]) for k, v in t.state.D.named_buffers()),
+          "the G phase leaves the codebook as it is")
+    t.close()
+    rate = 2 * accum / (step_ms[2] / 1e3)
+    print(f"{tag}: {json.dumps(options)}: steps 0-2 {'/'.join(f'{x:.2f}' for x in step_ms)} ms "
+          f"(0: GP, save and evaluate), step 2 (plain) = {rate:.2f} imgs/s (batch 2 x "
+          f"accumulation {accum}, fp32); the D phase moved the codebook, the G phase did not; "
+          f"peak {torch.cuda.max_memory_allocated()} bytes; launches {counts} on {smi}")
+    del t
+    torch.cuda.empty_cache()
+    return counts
 
 
 def rehisto_exact_grads(cfg, batch, draws, apply_gp, work) -> dict:
@@ -2226,6 +2446,11 @@ def main(argv=None) -> int:
     timed("7", phase_loss_gradient, dev)
     counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
+    counts_d, _, _ = timed("D1", phase_train, histogram_cuda, smi, profile, D_OPTIONS, rate,
+                           "train d options")
+    counts_d_bf16, _, _ = timed("D1b", phase_train, histogram_cuda, smi, profile,
+                                D_OPTIONS_BF16, rate, "train d options bf16")
+    counts_d_re = timed("D1r", phase_rehisto_d_options, histogram_cuda, smi)
     # the timed reHistoGAN phases before the comparisons that run steps on the CPU
     counts_recolor = timed("R1", phase_recolor, histogram_cuda, dev, smi)
     counts_recolor_bf16 = timed("R1b", phase_recolor_bf16, histogram_cuda, smi)
@@ -2238,14 +2463,19 @@ def main(argv=None) -> int:
     counts_projection = timed("P3", phase_projection_clis, histogram_cuda, smi)
     timed("P1", phase_projection_card_vs_cpu, smi)
     timed("9", phase_card_vs_cpu)
+    timed("D1c", card_vs_cpu_step, True, True, True, D_OPTIONS_CMP)
     timed("9b", phase_bf16_step)
     timed("R3", phase_rehisto_card_vs_cpu)
     timed("R3b", phase_rehisto_bf16_step)
     check(counts_recolor["histogram_fwd"] >= 1 and counts_re["histogram_fwd"] >= 1
           and counts_re["histogram_bwd"] >= 1 and counts_recolor_bf16["histogram_fwd"] >= 1
-          and counts_re_bf16["histogram_fwd"] >= 1 and counts_re_bf16["histogram_bwd"] >= 1,
+          and counts_re_bf16["histogram_fwd"] >= 1 and counts_re_bf16["histogram_bwd"] >= 1
+          and all(c[k] >= 1 for c in (counts_d, counts_d_bf16, counts_d_re)
+                  for k in ("histogram_fwd", "histogram_bwd")),
           f"K1 on the recolor paths ({counts_recolor}, bf16 {counts_recolor_bf16}), K1 and K2 "
-          f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16})")
+          f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16}) and on the "
+          f"paths with the D options ({counts_d}, bf16 {counts_d_bf16}, reHistoGAN "
+          f"{counts_d_re})")
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"seconds: total {time.perf_counter() - t_start:.2f}")
 
@@ -2265,6 +2495,9 @@ def main(argv=None) -> int:
                               "rehisto_training": counts_re["histogram_fwd"],
                               "recolor_bf16": counts_recolor_bf16["histogram_fwd"],
                               "rehisto_training_bf16": counts_re_bf16["histogram_fwd"],
+                              "training_d_options": counts_d["histogram_fwd"],
+                              "training_d_options_bf16": counts_d_bf16["histogram_fwd"],
+                              "rehisto_training_d_options": counts_d_re["histogram_fwd"],
                               "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"],
                               **counts_projection},
@@ -2280,6 +2513,9 @@ def main(argv=None) -> int:
                               "rehisto_training": counts_re["histogram_bwd"],
                               "recolor_bf16": counts_recolor_bf16["histogram_bwd"],
                               "rehisto_training_bf16": counts_re_bf16["histogram_bwd"],
+                              "training_d_options": counts_d["histogram_bwd"],
+                              "training_d_options_bf16": counts_d_bf16["histogram_bwd"],
+                              "rehisto_training_d_options": counts_d_re["histogram_bwd"],
                               "create_hist_data": pools["create_hist_data"]["histogram_bwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],

@@ -40,13 +40,15 @@ class TorchConv(nn.Conv2d):
     (``histogan_tpu/models/layers.py::TorchConv``), NCHW / OIHW."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 stride: int = 1, padding: int = 0):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding)
+                 stride: int = 1, padding: int = 0, bias: bool = True):
+        super().__init__(in_channels, out_channels, kernel_size, stride=stride, padding=padding,
+                         bias=bias)
 
     @torch.no_grad()
     def reset_parameters(self, generator: Optional[torch.Generator] = None) -> None:
         inits.kaiming_normal_(self.weight, generator)
-        inits.torch_default_bias_(self.bias, self.weight[0].numel(), generator)
+        if self.bias is not None:
+            inits.torch_default_bias_(self.bias, self.weight[0].numel(), generator)
 
 
 class InstanceNorm(nn.Module):

@@ -49,15 +49,19 @@ def gradient_penalty(d_apply: Callable[[torch.Tensor], torch.Tensor], images: to
 
 def shared_forward_gradient_penalty(
     forward: Callable[[torch.Tensor], torch.Tensor], images: torch.Tensor,
-    weight: float = 10.0,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    weight: float = 10.0, has_aux: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """The gradient penalty from the same real forward that gives the
     hinge logits. Returns (logits, gp): one forward feeds both the logits
-    and ``torch.autograd.grad(..., create_graph=True)`` of their sum."""
+    and ``torch.autograd.grad(..., create_graph=True)`` of their sum. With
+    ``has_aux`` the forward returns (logits, aux), and this (logits, aux,
+    gp), as ``jax.vjp(..., has_aux=True)`` in the JAX package."""
     images = images.detach().requires_grad_(True)
-    logits = forward(images)
+    out = forward(images)
+    logits = out[0] if has_aux else out
     (img_grads,) = torch.autograd.grad(logits.sum(), images, create_graph=True)
-    return logits, _penalty(img_grads, weight)
+    gp = _penalty(img_grads, weight)
+    return (logits, out[1], gp) if has_aux else (logits, gp)
 
 
 def path_length_lengths(pl_images: torch.Tensor, generated_images: torch.Tensor) -> torch.Tensor:

@@ -19,7 +19,7 @@ architecture flags that the reference does not persist from the keys.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -46,10 +46,14 @@ def _linear(tree: Mapping, prefix: str, out: Dict) -> None:
     out[f"{prefix}.bias"] = _np(tree["bias"])
 
 
-def _conv(tree: Mapping, prefix: str, out: Dict) -> None:
-    # HWIO -> OIHW
+def _conv_weight(tree: Mapping, prefix: str, out: Dict) -> None:
+    """A conv without bias, HWIO -> OIHW."""
     out[f"{prefix}.weight"] = np.ascontiguousarray(
         np.transpose(_np(tree["kernel"]), (3, 2, 0, 1)))
+
+
+def _conv(tree: Mapping, prefix: str, out: Dict) -> None:
+    _conv_weight(tree, prefix, out)
     out[f"{prefix}.bias"] = _np(tree["bias"])
 
 
@@ -85,16 +89,24 @@ def generator_state(tree: Mapping, prefix: str, out: Dict) -> None:
         generator_block_state(tree[f"blocks_{i}"], f"{prefix}.blocks.{i}", out)
 
 
-def discriminator_state(tree: Mapping, prefix: str, out: Dict) -> None:
-    """The JAX package's ``export_discriminator`` without attention or VQ:
-    ``net0``/``net1``/``down`` become ``net.0``/``net.2``/``downsample``,
-    and ``to_logit``'s input axis is reordered from the JAX flatten
-    (2, 2, C) to the reference's NCHW flatten (C, 2, 2)."""
-    unported = [k for k in tree if k.startswith(("attn_", "vq_"))]
-    if unported:
-        raise NotImplementedError(
-            f"discriminator attention / vector-quantize layers are not ported: {unported}")
-    for i in range(_count(tree, "blocks_{}")):
+def discriminator_state(tree: Mapping, prefix: str, out: Dict,
+                        vq_stats: Optional[Mapping] = None) -> None:
+    """The JAX package's ``export_discriminator`` (convert.py:386-408):
+    ``net0``/``net1``/``down`` become ``net.0``/``net.2``/``downsample``;
+    ``attn_{i}_{j}`` becomes ``attn_blocks.{i}.{j}.fn.g`` and
+    ``.fn.fn.to_{q,k,v,out}``; the ``vq_stats`` collection's ``vq_{i}``
+    becomes ``quantize_blocks.{i}.fn.{embed,embed_avg,cluster_size}``; and
+    ``to_logit``'s input axis is reordered from the JAX flatten (2, 2, C)
+    to the reference's NCHW flatten (C, 2, 2). A key it does not know
+    raises."""
+    n = _count(tree, "blocks_{}")
+    known = {f"blocks_{i}" for i in range(n)} | {"to_logit"} | {
+        f"attn_{i}_{j}" for i in range(n) for j in (0, 1)}
+    vq_stats = vq_stats or {}
+    unknown = sorted(set(tree) - known) + sorted(set(vq_stats) - {f"vq_{i}" for i in range(n)})
+    if unknown:
+        raise ValueError(f"the discriminator bridge does not know {unknown}")
+    for i in range(n):
         blk = tree[f"blocks_{i}"]
         b = f"{prefix}.blocks.{i}"
         _conv(blk["conv_res"], f"{b}.conv_res", out)
@@ -102,6 +114,19 @@ def discriminator_state(tree: Mapping, prefix: str, out: Dict) -> None:
         _conv(blk["net1"], f"{b}.net.2", out)
         if "down" in blk:
             _conv(blk["down"], f"{b}.downsample", out)
+        for j in (0, 1):
+            if f"attn_{i}_{j}" not in tree:
+                continue
+            a = tree[f"attn_{i}_{j}"]
+            ap = f"{prefix}.attn_blocks.{i}.{j}.fn"
+            out[f"{ap}.g"] = _np(a["g"])
+            for q in ("to_q", "to_k", "to_v"):
+                _conv_weight(a["attn"][q], f"{ap}.fn.{q}", out)
+            _conv(a["attn"]["to_out"], f"{ap}.fn.to_out", out)
+        if f"vq_{i}" in vq_stats:
+            qp = f"{prefix}.quantize_blocks.{i}.fn"
+            for suffix in ("embed", "embed_avg", "cluster_size"):
+                out[f"{qp}.{suffix}"] = _np(vq_stats[f"vq_{i}"][suffix])
     w = _np(tree["to_logit"]["kernel"]).T  # (1, 2*2*C), NHWC order
     c = w.shape[1] // 4
     out[f"{prefix}.to_logit.weight"] = np.ascontiguousarray(
@@ -111,15 +136,15 @@ def discriminator_state(tree: Mapping, prefix: str, out: Dict) -> None:
 
 def state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
     """JAX parameter bundle {'params_g': {'S','H','G'}, 'params_d',
-    'ema': {...}} -> the reference-layout state dict (every prefix of
-    PREFIXES), as ``export_histogan_checkpoint`` writes it."""
+    'ema': {...}[, 'vq_stats']} -> the reference-layout state dict (every
+    prefix of PREFIXES), as ``export_histogan_checkpoint`` writes it."""
     out: Dict[str, np.ndarray] = {}
     for tree, (s, h, g) in ((bundle["params_g"], ("S", "H", "G")),
                             (bundle["ema"], ("SE", "HE", "GE"))):
         style_vectorizer_state(tree["S"], s, out)
         hist_vectorizer_state(tree["H"], h, out)
         generator_state(tree["G"], g, out)
-    discriminator_state(bundle["params_d"], "D", out)
+    discriminator_state(bundle["params_d"], "D", out, bundle.get("vq_stats"))
     return {k: torch.tensor(v) for k, v in out.items()}
 
 
@@ -160,7 +185,8 @@ def encoder_decoder_state(tree: Mapping, prefix: str, out: Dict) -> None:
 
 
 def rehisto_state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX recoloring bundle {'params_g': {'ED', 'H', 'G'}, 'params_d'} ->
+    """JAX recoloring bundle {'params_g': {'ED', 'H', 'G'}, 'params_d'[,
+    'vq_stats']} ->
     the reference-layout state dict (ED, H, G, D), as
     ``export_rehistogan_checkpoint`` writes it."""
     out: Dict[str, np.ndarray] = {}
@@ -169,7 +195,7 @@ def rehisto_state_dict_from_jax(bundle: Mapping) -> Dict[str, torch.Tensor]:
     hist_vectorizer_state(g["H"], "H", out)
     for i in range(_count(g["G"], "blocks_{}")):
         generator_block_state(g["G"][f"blocks_{i}"], f"G.blocks.{i}", out)
-    discriminator_state(bundle["params_d"], "D", out)
+    discriminator_state(bundle["params_d"], "D", out, bundle.get("vq_stats"))
     return {k: torch.tensor(v) for k, v in out.items()}
 
 

@@ -17,7 +17,10 @@ before one DiffGrad update:
   which still go through DiffGrad (rehistoGAN.py:671-676).
 
 No EMA, path length or style mixing: the reference recoloringTrainer has
-none. As in ``train/steps.py`` the draws are inputs (:class:`ReHistoDraws`,
+none. The discriminator's attention and VQ layers run as in HistoGAN's
+step (``steps.d_loss``), without augmentation (the recoloringTrainer has
+no AugWrapper); unlike HistoGAN's, the G phase leaves the codebook as it
+is (``train_stats=False``, rehisto_steps.py:147-149). As in ``train/steps.py`` the draws are inputs (:class:`ReHistoDraws`,
 one (B, S, S, 1) uniform noise per micro-batch of each phase), so the
 tests can feed the JAX step's own.
 
@@ -120,7 +123,7 @@ def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.T
     variance). ``image_batch`` NCHW. ``models`` run in
     ``compute_dtype(cfg)``; D's logits and the losses are fp32."""
     generated = recolor_forward(models, image_batch, hist_batch, noise, cfg)
-    adv = gamma * torch.mean(widen(models.D(generated)))
+    adv = gamma * torch.mean(widen(models.D(generated, train_stats=False)[0]))
     generated32 = widen(generated)  # the loss math in fp32 (rehisto_steps.py:152)
     gen_hists = _hist(F.relu(generated32).permute(0, 2, 3, 1), cfg)
     hist = losses.hellinger_histogram_loss(hist_batch, gen_hists, alpha)
@@ -144,19 +147,21 @@ def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
     D = cast_module(state.D, dtype)
     params = list(state.D.parameters())
     accum = cfg.gradient_accumulate_every
-    grads, divs, gp = None, [], None
+    grads, divs, qs, gp = None, [], [], None
     for a in range(accum):
         real = to_nchw(dequantize_images(batch["d_images"][a]))
         with torch.no_grad():
             fake = recolor_forward(models, real, batch["d_hists"][a], draws.d[a], cfg)
         # D runs in bf16 under bf16, else on the images as they are (fp32,
         # or a float64 witness's)
-        loss, div, gp = d_loss(D, fake, real, apply_gp,
-                               dtype if dtype == torch.bfloat16 else real.dtype)
+        loss, div, q, gp = d_loss(D, fake, real, apply_gp,
+                                  dtype if dtype == torch.bfloat16 else real.dtype,
+                                  vq=state.D.has_vq)
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
+        qs.append(q.detach())
     _update(state.opt_d, params, grads, accum)
-    return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.zeros_like(divs[0]),
+    return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.stack(qs).mean(),
             "gp_loss": gp.detach()}
 
 

@@ -17,10 +17,14 @@ input photo's resolution (``post/pyramid.py``, ``post/bgu.py``), resizes
 down to it, and recolors the original by MKL (``post/mkl.py``), on the
 host, as in the JAX package.
 
-Not ported yet, and refused with NotImplementedError when asked for: the
-discriminator's attention and vector-quantize layers, ``remat``, the
-dataset held in device memory (``device_dataset=True``), more than one
-device or FSDP, and ``sync_every`` > 1.
+The discriminator's attention (``attn_layers``) and vector-quantize
+(``fq_layers``) layers train as in HistoGAN (``train/rehisto_steps.py``);
+under ``precision='bf16'`` a VQ layer with a D block after it is refused
+with a ValueError, as in ``train/trainer.py``.
+
+Not ported yet, and refused with NotImplementedError when asked for:
+``remat``, the dataset held in device memory (``device_dataset=True``),
+more than one device or FSDP, and ``sync_every`` > 1.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from histogan_tpu_torch.models.discriminator import Discriminator
+from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.rehisto import RecoloringEncoderDecoder, RecoloringGAN
 from histogan_tpu_torch.models.vectorizers import HistVectorizer
 from histogan_tpu_torch.optim.diffgrad import DiffGrad
@@ -75,18 +79,18 @@ class RecoloringTrainer:
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
         _check_choice("device_dataset", device_dataset, ("auto", True, False))
         _refuse_deferred(
-            fq_layers=len(fq_layers) > 0,
-            attn_layers=len(attn_layers) > 0,
             remat=bool(remat),
             device_dataset=device_dataset is True,
             num_devices=(num_devices or 1) > 1,
             param_sharding=param_sharding == "fsdp",
             sync_every=int(sync_every) > 1,
         )
+        refuse_bf16_vq(precision, image_size, fq_layers)
         self.cfg = ReHistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
-            fq_dict_size=fq_dict_size,
+            fq_layers=tuple(fq_layers), fq_dict_size=fq_dict_size,
+            attn_layers=tuple(attn_layers),
             hist_bin=hist_bin, hist_insz=hist_insz, hist_method=hist_method,
             hist_resizing=hist_resizing, hist_sigma=hist_sigma,
             batch_size=batch_size, gradient_accumulate_every=gradient_accumulate_every,
@@ -385,6 +389,7 @@ class RecoloringTrainer:
         models and restore checkpoint ``num`` (the latest for -1). Returns
         -1 when there is none, else 0."""
         self.cfg = self.cfg.load_config(self.store.config_path)
+        refuse_bf16_vq(self.cfg.precision, self.cfg.image_size, self.cfg.fq_layers)
         self.init_GAN()
         name = num
         if num == -1:

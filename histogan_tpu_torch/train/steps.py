@@ -20,6 +20,15 @@ Differences of form from the JAX step, none of value:
 - Gradients are taken with ``torch.autograd.grad`` over the phase's own
   parameters, so the G phase leaves no gradient on D.
 
+The discriminator's options run as in the JAX step (steps.py:139-186,
+230-314): with ``aug_prob`` > 0 every D call goes through ``aug_wrapper``
+(per D micro-batch one AugDraws for the fakes and one for the reals, per
+G micro-batch one for the fakes); with VQ layers the fakes and then the
+reals go through D one after the other, each updating the codebook (on a
+GP step once, inside the shared real forward), the G phase updates it
+too, and ``q_loss`` is the mean of the fake and real quantize losses,
+which D's loss includes. Without VQ the non-GP D forward stays merged.
+
 Under ``precision='bf16'`` the step follows the JAX package's policy
 (steps.py:88-186, 246-314): each phase casts the fp32 master parameters
 to bf16 copies once (``cast_models``; the casts are differentiable, so
@@ -34,13 +43,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from histogan_tpu_torch.ops import losses
+from histogan_tpu_torch.ops.diffaugment import AugDraws, aug_wrapper, draw_aug
 from histogan_tpu_torch.ops.histogram import histogram_feature
 from histogan_tpu_torch.train.state import HistoGANState
 
@@ -114,13 +124,16 @@ class GenDraws:
 
 @dataclasses.dataclass
 class StepDraws:
-    """One step's draws: a GenDraws per micro-batch of each phase, and on
+    """One step's draws: a GenDraws per micro-batch of each phase, on
     path-length steps the (B, num_layers - 2, latent) normal PL noise per
-    G micro-batch."""
+    G micro-batch, and with ``aug_prob`` > 0 the AugWrapper draws: (fakes,
+    reals) per D micro-batch, the fakes' per G micro-batch."""
 
     d: List[GenDraws]
     g: List[GenDraws]
     pl: Optional[List[torch.Tensor]] = None
+    d_aug: Optional[List[Tuple[AugDraws, AugDraws]]] = None
+    g_aug: Optional[List[AugDraws]] = None
 
 
 def draw_gen(gen: torch.Generator, batch: int, cfg, device) -> GenDraws:
@@ -137,13 +150,33 @@ def draw_gen(gen: torch.Generator, batch: int, cfg, device) -> GenDraws:
     return GenDraws(z1, z2, cutoff, noise)
 
 
-def draw_step(gen: torch.Generator, cfg, device, apply_pl: bool) -> StepDraws:
+def draw_step(gen: torch.Generator, cfg, device, apply_pl: bool,
+              coins: Optional[torch.Generator] = None) -> StepDraws:
+    """The step's draws from ``gen`` (on ``device``). With ``aug_prob`` > 0
+    the AugWrapper's gates and flips come from ``coins``, a CPU generator
+    (``gen`` itself when it is one), and its other draws after the rest,
+    so that they leave the draws of a run without augmentation as they
+    are; with ``aug_prob`` 0 nothing more is drawn."""
     accum, batch = cfg.gradient_accumulate_every, cfg.batch_size
     d = [draw_gen(gen, batch, cfg, device) for _ in range(accum)]
     g = [draw_gen(gen, batch, cfg, device) for _ in range(accum)]
     pl = ([torch.randn((batch, cfg.num_layers - 2, cfg.latent_dim), generator=gen, device=device)
            for _ in range(accum)] if apply_pl else None)
-    return StepDraws(d, g, pl)
+    if cfg.aug_prob <= 0.0:
+        return StepDraws(d, g, pl)
+    if coins is None:
+        if gen.device.type != "cpu":
+            raise ValueError("aug_prob > 0 on a device generator needs a CPU generator for "
+                             "the AugWrapper's coins")
+        coins = gen
+
+    def aug():
+        return draw_aug(gen, coins, batch, cfg.image_size, cfg.image_size, cfg.aug_prob,
+                        cfg.aug_types, device)
+
+    d_aug = [(aug(), aug()) for _ in range(accum)]
+    g_aug = [aug() for _ in range(accum)]
+    return StepDraws(d, g, pl, d_aug, g_aug)
 
 
 def sample_w_rows(S: nn.Module, draws: GenDraws, num_rows: int) -> torch.Tensor:
@@ -175,37 +208,64 @@ def to_nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def d_input(images: torch.Tensor, dtype: torch.dtype, aug: Optional[AugDraws]) -> torch.Tensor:
+    """``images`` cast to ``dtype`` and, with ``aug``, through the AugWrapper."""
+    x = images.to(dtype)
+    return x if aug is None else aug_wrapper(x, aug)
+
+
+def d_apply(D: Callable, images: torch.Tensor, dtype: torch.dtype, aug: Optional[AugDraws]):
+    """D (updating its codebook) on ``d_input(images, dtype, aug)``
+    (``_apply_d``, steps.py:139-157); returns (logits, quantize loss), both
+    fp32."""
+    logits, q = D(d_input(images, dtype, aug), train_stats=True)
+    return logits.float(), q.float()
+
+
 def d_loss(D: Callable, fake: torch.Tensor, real: torch.Tensor, apply_gp: bool,
-           dtype: torch.dtype = torch.float32):
-    """Hinge D loss on NCHW fakes and reals; returns (loss, divergence, gp).
-    D runs on images cast to ``dtype``; its logits are cast to fp32.
+           dtype: torch.dtype = torch.float32, aug: Optional[Tuple[AugDraws, AugDraws]] = None,
+           vq: bool = False):
+    """Hinge D loss on NCHW fakes and reals; returns (loss, divergence,
+    quantize loss, gp). D runs on images cast to ``dtype``, each half
+    through its AugWrapper draws of ``aug`` (fakes, reals); its logits are
+    cast to fp32.
 
-    On non-GP steps the two halves go through D as one batch of 2B
-    (steps.py:160-186: equal, since D works per sample). On GP steps one
-    real forward gives both the hinge logits and the penalty; the real
-    images enter it fp32, so their gradient is fp32 (steps.py:246-258)."""
-    def d_fp32(x):
-        return D(x.to(dtype)).float()
-
-    if not apply_gp:
+    Without VQ (``vq`` False) on non-GP steps the two halves go through D
+    as one batch of 2B (steps.py:160-186: equal, since D works per
+    sample). Otherwise the fakes and then the reals go through D, each
+    updating the codebook (steps.py:233-268); on GP steps one real forward
+    gives both the hinge logits and the penalty, the real images entering
+    it fp32 and before the augmentation, so their gradient is fp32 and
+    taken through it (steps.py:246-258)."""
+    aug_f, aug_r = aug if aug is not None else (None, None)
+    if not apply_gp and not vq:
         b = fake.shape[0]
-        logits = D(torch.cat([fake.to(dtype), real.to(dtype)], dim=0)).float()
+        logits, q = d_apply(D, torch.cat([d_input(fake, dtype, aug_f),
+                                          d_input(real, dtype, aug_r)]), dtype, None)
         div = losses.hinge_divergence(logits[b:], logits[:b])
-        return div, div, real.new_zeros(())
-    fake_logits = d_fp32(fake)
-    real_logits, gp = losses.shared_forward_gradient_penalty(d_fp32, real)
+        return div + q, div, q, real.new_zeros(())
+    fake_logits, fake_q = d_apply(D, fake, dtype, aug_f)
+    if apply_gp:
+        real_logits, real_q, gp = losses.shared_forward_gradient_penalty(
+            lambda x: d_apply(D, x, dtype, aug_r), real, has_aux=True)
+    else:
+        (real_logits, real_q), gp = d_apply(D, real, dtype, aug_r), real.new_zeros(())
     div = losses.hinge_divergence(real_logits, fake_logits)
-    return div + gp, div, gp
+    q = torch.mean(fake_q + real_q)
+    return div + q + gp, div, q, gp
 
 
 def g_loss(models: Models, hist_batch: torch.Tensor, draws: GenDraws,
-           pl_noise: Optional[torch.Tensor], pl_mean: torch.Tensor, cfg, apply_pl: bool):
+           pl_noise: Optional[torch.Tensor], pl_mean: torch.Tensor, cfg, apply_pl: bool,
+           aug: Optional[AugDraws] = None):
     """G loss; returns (loss, adversarial, histogram, mean path length).
     ``models`` run in ``compute_dtype(cfg)`` (``cast_models``); the losses
-    and the histogram are fp32 (steps.py:274-314)."""
+    and the histogram are fp32 (steps.py:274-314). D sees G's images
+    through the AugWrapper draws ``aug``."""
     dtype = compute_dtype(cfg)
     images, w_styles, h_rows = generate(models, hist_batch, draws, cfg.num_layers, dtype)
-    adv = torch.mean(models.D(images).float())
+    # the G phase updates the codebook too (steps.py:277-279)
+    adv = torch.mean(d_apply(models.D, images, dtype, aug)[0])
     gen_hists = histogram_feature(
         F.relu(images.float()).permute(0, 2, 3, 1), h=cfg.hist_bin, insz=cfg.hist_insz,
         resizing=cfg.hist_resizing, method=cfg.hist_method, sigma=cfg.hist_sigma)
@@ -254,16 +314,18 @@ def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
     D = cast_module(state.D, dtype)
     params = list(state.D.parameters())
     accum = cfg.gradient_accumulate_every
-    grads, divs, gp = None, [], None
+    grads, divs, qs, gp = None, [], [], None
     for a in range(accum):
         with torch.no_grad():
             fake, _, _ = generate(gen, batch["d_hists"][a], draws.d[a], cfg.num_layers, dtype)
         real = to_nchw(dequantize_images(batch["d_images"][a]))
-        loss, div, gp = d_loss(D, fake, real, apply_gp, dtype)
+        loss, div, q, gp = d_loss(D, fake, real, apply_gp, dtype,
+                                  draws.d_aug[a] if draws.d_aug else None, state.D.has_vq)
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
+        qs.append(q.detach())
     _update(state.opt_d, params, grads, accum)
-    return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.zeros_like(divs[0]),
+    return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.stack(qs).mean(),
             "gp_loss": gp.detach()}
 
 
@@ -279,7 +341,8 @@ def g_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
     for a in range(accum):
         pl_noise = draws.pl[a] if apply_pl else None
         loss, adv, hist, avg_pl = g_loss(models, batch["g_hists"][a], draws.g[a], pl_noise,
-                                         state.pl_mean, cfg, apply_pl)
+                                         state.pl_mean, cfg, apply_pl,
+                                         draws.g_aug[a] if draws.g_aug else None)
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         advs.append(adv.detach())
         hists.append(hist.detach())

@@ -17,10 +17,17 @@ in bf16 on fp32 master weights (``train/steps.py``);
 rounding. Sampling (``evaluate``, ``generate_truncated``) is fp32 at any
 setting: a bf16 EMA is widened first, as in the JAX package.
 
+The discriminator's options: DiffAugment (``aug_prob`` > 0, ``aug_types``;
+the AugWrapper's gates and flips drawn on a host generator of their own,
+seeded seed + COIN_SEED_OFFSET, so that they cost no sync), linear
+attention (``attn_layers``) and the vector-quantize codebook
+(``fq_layers``, ``fq_dict_size``), whose buffers ride in D's state dict.
+Under ``precision='bf16'`` a VQ layer with a D block after it is refused
+with a ValueError, as the JAX package cannot run it either.
+
 Not ported yet, and refused with NotImplementedError when asked for: the
 dataset held in device memory (``device_dataset``), FID tracking
-(``calculate_fid_every``), DiffAugment (``aug_prob`` > 0), the
-discriminator's attention and vector-quantize layers, and ``remat``.
+(``calculate_fid_every``) and ``remat``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from histogan_tpu_torch.models.discriminator import Discriminator
+from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.generator import Generator
 from histogan_tpu_torch.models.vectorizers import HistVectorizer, StyleVectorizer
 from histogan_tpu_torch.optim.diffgrad import DiffGrad
@@ -58,6 +65,8 @@ class NanException(Exception):
 # the bf16 EMA's generator is seeded with seed + this ("EMA", as the JAX
 # step folds it into its key)
 EMA_SEED_OFFSET = 0x454D41
+# the AugWrapper's host generator is seeded with seed + this ("AUG")
+COIN_SEED_OFFSET = 0x415547
 DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -90,15 +99,14 @@ class Trainer:
         _refuse_deferred(
             device_dataset=bool(device_dataset),
             calculate_fid_every=bool(calculate_fid_every),
-            aug_prob=aug_prob > 0.0,
-            attn_layers=len(attn_layers) > 0,
-            fq_layers=len(fq_layers) > 0,
             remat=bool(remat),
         )
+        refuse_bf16_vq(precision, image_size, fq_layers)
         self.cfg = HistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
-            fq_dict_size=fq_dict_size,
+            fq_layers=tuple(fq_layers), fq_dict_size=fq_dict_size,
+            attn_layers=tuple(attn_layers),
             hist_bin=hist_bin, hist_insz=hist_insz, hist_method=hist_method,
             hist_resizing=hist_resizing, hist_sigma=hist_sigma,
             batch_size=batch_size, gradient_accumulate_every=gradient_accumulate_every,
@@ -115,6 +123,7 @@ class Trainer:
         self.device = setup_runtime(device)
         self.seed = int(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
+        self.coin_gen = torch.Generator().manual_seed(self.seed + COIN_SEED_OFFSET)
         self.opt_state_dtype, self.ema_dtype = DTYPES[opt_state_dtype], DTYPES[ema_dtype]
         self.num_workers = int(num_workers) if num_workers else None
         self.steps = 0
@@ -251,7 +260,7 @@ class Trainer:
         apply_reset = steps <= 25000 and steps % 1000 == 2
 
         batch = self._device_batch(next(self.loader))
-        draws = draw_step(self.gen, cfg, self.device, apply_pl)
+        draws = draw_step(self.gen, cfg, self.device, apply_pl, coins=self.coin_gen)
         metrics = train_step(self.state, batch, draws, cfg, apply_gp, apply_pl, apply_ema)
         if apply_reset:
             self.state.reset_ema()
@@ -392,6 +401,7 @@ class Trainer:
         """Trust the persisted architecture (models/<name>/.config.json)
         over the flags, as the reference does, then build the models."""
         self.cfg = self.cfg.load_config(self.config_path)
+        refuse_bf16_vq(self.cfg.precision, self.cfg.image_size, self.cfg.fq_layers)
         self.init_GAN()
 
     def save(self, num: int) -> None:

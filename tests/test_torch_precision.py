@@ -196,14 +196,14 @@ def test_bf16_step_computes_where_jax_does(tmp_path):
     hists = torch.from_numpy(_batch(1, seed=61)["g_hists"][0])
     images, w_styles, h_rows = steps.generate(models, hists, draws, t.cfg.num_layers, dt)
     assert images.dtype == w_styles.dtype == h_rows.dtype == torch.bfloat16
-    assert models.D(images).dtype == torch.bfloat16
+    assert models.D(images)[0].dtype == torch.bfloat16
     real = torch.rand(2, 3, 32, 32)
     for gp in (False, True):
-        loss, div, pen = steps.d_loss(models.D, images.detach(), real, gp, dt)
-        assert loss.dtype == div.dtype == pen.dtype == torch.float32
+        loss, div, q, pen = steps.d_loss(models.D, images.detach(), real, gp, dt)
+        assert loss.dtype == div.dtype == q.dtype == pen.dtype == torch.float32
     seen = []
     _, pen = losses.shared_forward_gradient_penalty(
-        lambda x: seen.append(x) or models.D(x.to(dt)).float(), real)
+        lambda x: seen.append(x) or models.D(x.to(dt))[0].float(), real)
     assert seen[0].dtype == torch.float32 and pen.dtype == torch.float32
     loss, adv, hist, avg_pl = steps.g_loss(models, hists, draws, torch.randn(2, 2, 32),
                                            torch.zeros(()), t.cfg, True)
@@ -223,7 +223,7 @@ def test_cpu_bf16_gradient_penalty_matches_float64():
     def gp_grads(module, dt):
         run = steps.cast_module(module, dt)
         _, gp = losses.shared_forward_gradient_penalty(
-            lambda x: run(x.to(dt)).double(), real.to(torch.float64 if dt == torch.float64
+            lambda x: run(x.to(dt))[0].double(), real.to(torch.float64 if dt == torch.float64
                                                       else torch.float32))
         params = dict(module.named_parameters())
         return torch.autograd.grad(gp, [params[n] for n in names])

@@ -1,7 +1,8 @@
 """The port's projection CLIs (histogan-projection-gaussian-torch and
 histogan-projection-to-latent-torch) on the CPU: their flags and defaults
 against the JAX package's, a toy run of each and of its ``--generate``
-toward a .npy, a JPEG and a folder, and the options the port refuses."""
+toward a .npy, a JPEG and a folder, and a projection from a checkpoint
+with the discriminator's attention or VQ layers."""
 
 import numpy as np
 import pytest
@@ -73,8 +74,21 @@ def test_cli_projects_then_recolors(mode, port, jax_cli, results, images, tmp_pa
 
 
 @pytest.mark.parametrize("flag", ["--attn_layers", "--fq_layers"])
-def test_cli_refuses_the_options_not_ported(flag, tmp_path):
-    with pytest.raises(NotImplementedError):
-        projection_gaussian.main(["--device", "cpu", "--image_size", "32",
-                                  "--network_capacity", "2", "--models_dir", str(tmp_path),
-                                  "--results_dir", str(tmp_path), flag, "1"])
+def test_cli_refuses_the_options_not_ported(flag, tmp_path, images):
+    """The discriminator's attention and VQ layers are ported: the CLI
+    projects from a checkpoint that has them (its .config.json names them,
+    and it loads with strict=True)."""
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    opts = {flag[2:]: (1, 2)}
+    t = Trainer("m", str(tmp_path / "res"), str(tmp_path / "models"), device="cpu",
+                image_size=32, network_capacity=2, **opts)
+    t.init_GAN()
+    t.save(0)
+    projection_gaussian.main(["--device", "cpu", "--name", "m", "--image_size", "32",
+                              "--network_capacity", "2", "--models_dir", str(tmp_path / "models"),
+                              "--results_dir", str(tmp_path / "res"),
+                              "--input_image", str(images / "input.jpg"),
+                              "--num_train_steps", "1", "--vgg_loss_weight", "0"])
+    out = tmp_path / "res" / "m" / "input"
+    assert (out / "input_final.npz").is_file() and (out / "input_final.jpg").is_file()

@@ -261,7 +261,7 @@ def test_bf16_step_computes_where_jax_does(bf16_steps, tmp_path, monkeypatch):
     hists = torch.from_numpy(batch["g_hists"][0])
     noise = torch.rand(2, 32, 32, 1, generator=torch.Generator().manual_seed(0))
     out = rehisto_steps.recolor_forward(models, images, hists, noise, t.cfg)
-    assert out.dtype == torch.bfloat16 and models.D(out).dtype == torch.bfloat16
+    assert out.dtype == torch.bfloat16 and models.D(out)[0].dtype == torch.bfloat16
     seen = []
     real_feature = port_histogram.histogram_feature
     monkeypatch.setattr(rehisto_steps, "histogram_feature",

@@ -40,6 +40,7 @@ from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 from histogan_tpu_torch.train.trainer import NanException, Trainer
 from test_torch_models import random_params
 from test_torch_rehisto import _jax_bundle
+from test_torch_steps import _jax_vq
 
 torch.set_num_threads(1)
 
@@ -71,6 +72,9 @@ NORMED_BIAS_RTOL = 1e-5
 # at g ~ 0; here they also differ where |g| is within the gap above).
 PARAM_CLOSE = 1e-6
 PARAM_OFF_SHARE = 5e-3
+# The codebook after a step, relative to its largest entry (EMA sums of
+# D's features; tests/test_torch_steps.py's CODEBOOK_RTOL)
+CODEBOOK_RTOL = 2e-4
 # small trainers for the surface tests
 SMALL = dict(image_size=32, network_capacity=2, latent_dim=16, style_depth=2, hist_bin=16,
              batch_size=2, gradient_accumulate_every=1, seed=0, skip_conn_to_GAN=True)
@@ -113,21 +117,31 @@ def _named_grads(state, opt, prefixes):
             for p in prefixes for n, w in getattr(state, p).named_parameters()}
 
 
-@pytest.mark.parametrize("apply_gp,accum,fixed", [
-    (True, 1, False), (False, 1, False), (True, 2, False), (False, 2, False), (True, 1, True)])
-def test_rehisto_train_step_matches_jax(tmp_path, apply_gp, accum, fixed):
-    cfg = JaxReConfig(gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP)
+def _rehisto_step_parity(tmp_path, apply_gp, accum, fixed, **options):
+    """One JAX recoloring step and the port's from the same weights, batch
+    and noise; with ``options`` (attn_layers, fq_layers, fq_dict_size) the
+    D has them, with a random codebook. Returns (port trainer, JAX state
+    after, batch, draws)."""
+    cfg = JaxReConfig(gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP,
+                      **options)
     bundle = _jax_bundle(True, False, seed=60, size=cfg.image_size, hbin=cfg.hist_bin)
+    jd = JaxDiscriminator(cfg.image_size, cfg.network_capacity, fq_layers=cfg.fq_layers,
+                          fq_dict_size=cfg.fq_dict_size, attn_layers=cfg.attn_layers)
+    vq = {}
+    if options:
+        bundle["params_d"] = random_params(jd, 64, jnp.zeros((1, cfg.image_size,
+                                                              cfg.image_size, 3)))
+        vq = _jax_vq(cfg, seed=65)
+        bundle["vq_stats"] = vq
     models = jax_rehisto_steps.RecolorModels(
         JaxED(cfg.image_size, cfg.network_capacity, cfg.hist_bin, cfg.latent_dim,
               cfg.style_depth, True, False),
         JaxHistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
-        JaxRecoloringGAN(cfg.image_size, cfg.latent_dim, cfg.network_capacity),
-        JaxDiscriminator(cfg.image_size, cfg.network_capacity))
+        JaxRecoloringGAN(cfg.image_size, cfg.latent_dim, cfg.network_capacity), jd)
     tx = jax_diffgrad(LR, 0.5, 0.9)
     state = JaxState(step=jnp.zeros((), jnp.int32), params_g=bundle["params_g"],
                      params_d=bundle["params_d"], opt_g=tx.init(bundle["params_g"]),
-                     opt_d=tx.init(bundle["params_d"]))
+                     opt_d=tx.init(bundle["params_d"]), vq_stats=vq)
     batch = _batch(accum, seed=61 + accum)
     key = jax.random.PRNGKey(62)
     step = jax_rehisto_steps.make_rehisto_train_step(models, tx, tx, cfg)
@@ -136,17 +150,20 @@ def test_rehisto_train_step_matches_jax(tmp_path, apply_gp, accum, fixed):
     new = jax.device_get(new)
 
     t = RecoloringTrainer("p", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu", seed=0,
-                          gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP)
+                          gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP,
+                          **options)
     t.init_GAN()
     assert t.load_state_dict(convert.rehisto_state_dict_from_jax(bundle)) == []
-    metrics = rehisto_steps.train_step(t.state, {k: torch.from_numpy(v) for k, v in batch.items()},
-                                       jax_step_draws(key, t.cfg), t.cfg, apply_gp, **HYPER)
+    batch = {k: torch.from_numpy(v) for k, v in batch.items()}
+    draws = jax_step_draws(key, t.cfg)
+    metrics = rehisto_steps.train_step(t.state, batch, draws, t.cfg, apply_gp, **HYPER)
 
     assert set(metrics) == set(jmetrics)
     for k, want in jmetrics.items():
         want, got = float(want), metrics[k].item()
         assert abs(got - want) <= LOSS_RTOL * abs(want) + 1e-7, (k, got, want)
     assert (float(jmetrics["gp_loss"]) > 0) == apply_gp
+    assert (float(jmetrics["q_loss"]) > 0) == bool(options.get("fq_layers"))
     assert float(jmetrics["var_loss"]) < 0 and float(jmetrics["r_loss"]) > 0  # both terms ran
     assert t.state.step == 1
 
@@ -165,12 +182,17 @@ def test_rehisto_train_step_matches_jax(tmp_path, apply_gp, accum, fixed):
         assert (g - want_grads[k]).abs().max().item() <= GRAD_RTOL * scale + 1e-12, k
 
     want = convert.rehisto_state_dict_from_jax({"params_g": new.params_g,
-                                                "params_d": new.params_d})
+                                                "params_d": new.params_d,
+                                                "vq_stats": new.vq_stats})
     got = t.reference_state_dict()
     before = convert.rehisto_state_dict_from_jax(bundle)
     assert set(got) == set(want)
     off = 0
     for k, v in got.items():
+        if "quantize_blocks" in k:  # the codebook, a buffer
+            w = want[k]
+            assert (v - w).abs().max().item() <= CODEBOOK_RTOL * w.abs().max().item(), k
+            continue
         g, gj = got_grads[k].double(), want_grads[k].double()
         allowed = PARAM_CLOSE + LR * (_u(g) - _u(gj)).abs()
         assert bool(((v - want[k]).abs().double() <= allowed).all()), k
@@ -181,6 +203,29 @@ def test_rehisto_train_step_matches_jax(tmp_path, apply_gp, accum, fixed):
         assert not (frozen and g.any())
         assert torch.equal(v, before[k]) == (not g.any()), k
     assert off <= PARAM_OFF_SHARE * sum(v.numel() for v in got.values())
+    return t, batch, draws
+
+
+@pytest.mark.parametrize("apply_gp,accum,fixed", [
+    (True, 1, False), (False, 1, False), (True, 2, False), (False, 2, False), (True, 1, True)])
+def test_rehisto_train_step_matches_jax(tmp_path, apply_gp, accum, fixed):
+    _rehisto_step_parity(tmp_path, apply_gp, accum, fixed)
+
+
+def test_rehisto_train_step_with_the_d_options_matches_jax(tmp_path):
+    """A GP step at accumulation 1 (tests/test_torch_steps.py runs the
+    options at 2) with attention at layers 1-2 and a VQ codebook at layer 3
+    (no augmentation: the recoloringTrainer has none); the codebook after
+    the step as JAX's, which only the D phase moves, and the port's G
+    phase on its own leaves it as it is."""
+    t, batch, draws = _rehisto_step_parity(tmp_path, True, 1, False, attn_layers=(1, 2),
+                                           fq_layers=(3,), fq_dict_size=16)
+    book = {k: v.clone() for k, v in t.state.D.state_dict().items() if "quantize" in k}
+    assert book
+    rehisto_steps.g_phase(t.state, batch, draws, t.cfg, **HYPER)
+    assert all(torch.equal(t.state.D.state_dict()[k], v) for k, v in book.items())
+    rehisto_steps.d_phase(t.state, batch, draws, t.cfg, apply_gp=False)
+    assert not all(torch.equal(t.state.D.state_dict()[k], v) for k, v in book.items())
 
 
 def test_port_draws_are_uniform_noise_per_micro_batch():
@@ -375,9 +420,16 @@ def test_nan_rolls_back_to_the_checkpoint(tmp_path, images, monkeypatch):
     assert all(torch.equal(got[k], saved[k]) for k in saved)
 
 
-def test_refused_options(tmp_path):
-    for kw in (dict(fq_layers=(1,)), dict(attn_layers=(1,)),
-               dict(remat=True), dict(device_dataset=True), dict(num_devices=2),
+def test_refused_options(tmp_path, images):
+    # the discriminator's attention and VQ layers are ported: they build
+    for kw in (dict(fq_layers=(1,)), dict(attn_layers=(1,))):
+        t = _trainer(tmp_path, **kw)
+        t.init_GAN()
+        assert t.cfg.fq_layers == kw.get("fq_layers", ()) and \
+            t.cfg.attn_layers == kw.get("attn_layers", ())
+        assert any(k.startswith(("D.attn_blocks.0.", "D.quantize_blocks.0."))
+                   for k in t.reference_state_dict())
+    for kw in (dict(remat=True), dict(device_dataset=True), dict(num_devices=2),
                dict(param_sharding="fsdp"), dict(sync_every=4)):
         with pytest.raises(NotImplementedError):
             _trainer(tmp_path, **kw)
@@ -391,10 +443,15 @@ def test_refused_options(tmp_path):
     # the CLI passes what the trainer refuses on (bf16, upsampling,
     # post-recoloring and face extraction are ported: their tests are
     # tests/test_torch_rehisto_bf16.py and tests/test_torch_rehisto_post.py)
-    for extra in (["--remat", "True"], ["--num_devices", "2"], ["--fq_layers", "1"],
-                  ["--sync_every", "2"]):
+    for extra in (["--remat", "True"], ["--num_devices", "2"], ["--sync_every", "2"]):
         with pytest.raises(NotImplementedError):
             cli.main([*dirs, *extra])
+    # --fq_layers and --attn_layers reach the trainer, which trains with them
+    cli.main([*dirs, "--data", str(images), "--name", "opts", "--hist_bin", "16",
+              "--fq_layers", "3", "--attn_layers", "2", "--batch_size", "2",
+              "--gradient_accumulate_every", "1", "--num_train_steps", "1"])
+    saved = torch.load(tmp_path / "mod" / "opts" / "model_0.pt", weights_only=True)["GAN"]
+    assert "D.quantize_blocks.2.fn.embed" in saved and "D.attn_blocks.1.0.fn.g" in saved
 
 
 def test_load_pt_refuses_another_variant(tmp_path):

@@ -182,8 +182,17 @@ def test_cli_without_generate_or_gpu_raises(tmp_path):
             "--image_size", "32", "--network_capacity", "2", "--new", "True"]
     with pytest.raises(FileNotFoundError):
         cli.main(["--device", "cpu", "--data", str(tmp_path / "empty"), *dirs])
-    with pytest.raises(NotImplementedError):
-        cli.main(["--device", "cpu", "--aug_prob", "0.3", *dirs])
+    # --aug_prob is ported: it trains (DiffAugment on D's inputs)
+    from PIL import Image
+
+    data = tmp_path / "data"
+    data.mkdir()
+    rng = np.random.default_rng(5)
+    for i in range(4):
+        Image.fromarray((rng.random((36, 40, 3)) * 255).astype(np.uint8)).save(data / f"{i}.png")
+    cli.main(["--device", "cpu", "--aug_prob", "0.3", "--data", str(data), "--batch_size", "2",
+              "--gradient_accumulate_every", "1", "--num_train_steps", "1", *dirs])
+    assert (tmp_path / "mod" / "histoGAN_model" / "model_0.pt").is_file()
     if not torch.cuda.is_available():  # no silent move to the CPU
         with pytest.raises(RuntimeError):
             _cli(tmp_path, tmp_path / "x.npy", device="cuda")

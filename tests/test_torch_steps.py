@@ -5,7 +5,11 @@ depth 2, with the step-0 flags: gradient penalty and path length) and the
 port's ``train_step`` start from the same weights (through the bridge,
 ``strict=True``), the same batch and the same draws: the test rebuilds
 the JAX step's random draws from its key with the step's own splits and
-hands them to the port. The rest holds the port's step to itself:
+hands them to the port. The same holds for a GP step with the
+discriminator's options (DiffAugment at aug_prob 1, attention, a VQ
+codebook) at accumulation 2 (the port's micro-batch loop is the same at
+1; tests/test_torch_rehisto_trainer.py runs the options at 1), at 16 px,
+the codebook after the step included (both phases update it). The rest holds the port's step to itself:
 merged and unmerged D forwards, gradient accumulation, no gradient on D
 from the G phase, and the distributions of the port's own draws.
 """
@@ -30,6 +34,8 @@ from histogan_tpu.utils.config import HistoGANConfig as JaxConfig
 from histogan_tpu_torch.ops import losses
 from histogan_tpu_torch.train import convert, steps
 from histogan_tpu_torch.train.trainer import Trainer
+from test_torch_d_options import _codebook
+from test_torch_diffaugment import jax_aug_draws
 from test_torch_models import random_params
 
 torch.set_num_threads(1)
@@ -51,6 +57,11 @@ GRAD_RTOL = 2e-4
 # entries to PARAM_CLOSE.
 PARAM_ATOL = 1.01 * LR
 PARAM_CLOSE = 1e-6
+# The codebook after a step: EMA sums of D's features over three forwards
+# (fakes, reals, G's fakes), relative to its largest entry, as GRAD_RTOL.
+CODEBOOK_RTOL = 2e-4
+D_OPTIONS = dict(aug_prob=1.0, aug_types=("color", "translation", "cutout", "offset"),
+                 attn_layers=(1, 2), fq_layers=(3,), fq_dict_size=16)
 
 
 def _jax_params(cfg, seed):
@@ -62,14 +73,25 @@ def _jax_params(cfg, seed):
          "G": random_params(JaxGenerator(size, cfg.latent_dim, cfg.network_capacity), seed + 2,
                             jnp.zeros((1, nl - 2, cfg.latent_dim)),
                             jnp.zeros((1, 2, cfg.latent_dim)), jnp.zeros((1, size, size, 1)))}
-    d = random_params(JaxDiscriminator(size, cfg.network_capacity), seed + 3,
-                      jnp.zeros((1, size, size, 3)))
+    d = random_params(_jax_d(cfg), seed + 3, jnp.zeros((1, size, size, 3)))
     return g, d
 
 
-def _batch(accum, seed):
+def _jax_d(cfg):
+    return JaxDiscriminator(cfg.image_size, cfg.network_capacity, fq_layers=cfg.fq_layers,
+                            fq_dict_size=cfg.fq_dict_size, attn_layers=cfg.attn_layers)
+
+
+def _jax_vq(cfg, seed):
+    """A random codebook for each of ``cfg.fq_layers`` (the vq_stats tree)."""
+    return {f"vq_{n - 1}": _codebook(cfg.network_capacity * 2 ** (n - 1), cfg.fq_dict_size,
+                                     seed + n)
+            for n in cfg.fq_layers}
+
+
+def _batch(accum, seed, size=SMALL["image_size"]):
     rng = np.random.default_rng(seed)
-    b, s = SMALL["batch_size"], SMALL["image_size"]
+    b, s = SMALL["batch_size"], size
 
     def hists():
         h = rng.random((accum, b, 3, 64, 64), dtype=np.float32)
@@ -85,11 +107,13 @@ def _torch(x):
 
 def jax_step_draws(key, cfg, apply_pl, z_dtype=jnp.float32):
     """The draws ``make_train_step``'s step makes from ``key``, with its
-    splits: k_d, k_g = split(key); split(k_d, A), then split(k, 3) and the
-    generator's split(k_gen) and split(k_style, 4); split(k_g, A), then
-    split(k, 3) whose third key draws the path-length noise. Under bf16
-    the JAX step draws z in bf16 (``z_dtype``), exact in fp32; the noise
-    and the path-length noise stay fp32."""
+    splits: k_d, k_g = split(key); split(k_d, A), then split(k, 3) into
+    the generator's key (split(k_gen) and split(k_style, 4)) and the
+    AugWrapper keys of the fakes and the reals; split(k_g, A), then
+    split(k, 3) into the generator's key, the fakes' AugWrapper key and
+    the path-length noise's. Under bf16 the JAX step draws z and the
+    augmentation's factors in bf16 (``z_dtype``), exact in fp32; the
+    noise and the path-length noise stay fp32."""
     b, rows = cfg.batch_size, cfg.num_layers - 2
 
     def gen(k_gen):
@@ -103,20 +127,31 @@ def jax_step_draws(key, cfg, apply_pl, z_dtype=jnp.float32):
             cutoff=_torch(jnp.where(use_mixed, tt, rows)),
             noise=_torch(jax.random.uniform(k_noise, (b, cfg.image_size, cfg.image_size, 1))))
 
+    def aug(k):
+        return jax_aug_draws(k, b, cfg.image_size, cfg.image_size, cfg.aug_prob,
+                             cfg.aug_types, z_dtype)
+
     k_d, k_g = jax.random.split(key)
     accum = cfg.gradient_accumulate_every
-    d = [gen(jax.random.split(k, 3)[0]) for k in jax.random.split(k_d, accum)]
-    g, pl = [], []
+    d, d_aug = [], []
+    for k in jax.random.split(k_d, accum):
+        k_gen, k_aug_f, k_aug_r = jax.random.split(k, 3)
+        d.append(gen(k_gen))
+        d_aug.append((aug(k_aug_f), aug(k_aug_r)))
+    g, g_aug, pl = [], [], []
     for k in jax.random.split(k_g, accum):
-        k_gen, _, k_pl = jax.random.split(k, 3)
+        k_gen, k_aug, k_pl = jax.random.split(k, 3)
         g.append(gen(k_gen))
+        g_aug.append(aug(k_aug))
         pl.append(_torch(jax.random.normal(k_pl, (b, rows, cfg.latent_dim))))
-    return steps.StepDraws(d, g, pl if apply_pl else None)
+    with_aug = cfg.aug_prob > 0
+    return steps.StepDraws(d, g, pl if apply_pl else None, d_aug if with_aug else None,
+                           g_aug if with_aug else None)
 
 
-def _port_trainer(tmp_path, bundle, accum=1):
+def _port_trainer(tmp_path, bundle, accum=1, **options):
     t = Trainer("p", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu", seed=0,
-                gradient_accumulate_every=accum, **SMALL)
+                gradient_accumulate_every=accum, **{**SMALL, **options})
     t.init_GAN()
     assert t.load_state_dict(convert.state_dict_from_jax(bundle)) == []
     return t
@@ -195,6 +230,83 @@ def test_train_step_matches_jax(jax_step_result, tmp_path):
     assert all(torch.equal(got[k], before[k]) for k in got if k.split(".")[0] in ("SE", "HE", "GE"))
 
 
+def _compare_step(t, r, metrics, live):
+    """The port's state after its step against the JAX step's result ``r``:
+    the metrics, the applied gradients and the post-step parameters."""
+    assert set(metrics) == set(r["metrics"])
+    for k, want in r["metrics"].items():
+        got = metrics[k].item()
+        assert abs(got - want) <= LOSS_RTOL * abs(want) + 1e-7, (k, got, want)
+    want_grads = convert.state_dict_from_jax(r["grads"])
+    got_grads = {**_named_grads(t.state, t.state.opt_g, ("S", "H", "G")),
+                 **_named_grads(t.state, t.state.opt_d, ("D",))}
+    assert set(got_grads) == {k for k in want_grads if k.split(".")[0] in live
+                              and "quantize_blocks" not in k}
+    for k, g in got_grads.items():
+        scale = want_grads[k].abs().max().item()
+        assert (g - want_grads[k]).abs().max().item() <= GRAD_RTOL * scale + 1e-12, k
+    want = convert.state_dict_from_jax(r["after"])
+    got = t.reference_state_dict()
+    assert set(got) == set(want)
+    off = 0
+    for k, v in got.items():
+        if "quantize_blocks" in k:
+            continue
+        assert (v - want[k]).abs().max().item() <= PARAM_ATOL, k
+        off += int(((v - want[k]).abs() > PARAM_CLOSE).sum())
+    assert off <= 1e-3 * sum(v.numel() for v in got.values())
+    return got, want
+
+
+@pytest.fixture(scope="module")
+def jax_options_step_result():
+    """One JAX GP step at accumulation 2 with DiffAugment (aug_prob 1:
+    every function runs), attention at layers 1-2 and a VQ codebook at
+    layer 3, 16 px: the codebook carried across both phases' micro-batches."""
+    cfg = JaxConfig(gradient_accumulate_every=2, **{**SMALL, "image_size": 16}, **D_OPTIONS)
+    params_g, params_d = _jax_params(cfg, seed=60)
+    vq = _jax_vq(cfg, seed=61)
+    models = jax_steps.Models(
+        JaxStyleVectorizer(cfg.latent_dim, cfg.style_depth),
+        JaxHistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
+        JaxGenerator(cfg.image_size, cfg.latent_dim, cfg.network_capacity), _jax_d(cfg))
+    tx = jax_diffgrad(LR, 0.5, 0.9)
+    state = JaxState(step=jnp.zeros((), jnp.int32), params_g=params_g, params_d=params_d,
+                     ema=params_g, opt_g=tx.init(params_g), opt_d=tx.init(params_d),
+                     pl_mean=jnp.zeros(()), vq_stats=vq)
+    batch = _batch(cfg.gradient_accumulate_every, seed=62, size=16)
+    key = jax.random.PRNGKey(63)
+    step = jax_steps.make_train_step(models, tx, tx, cfg)
+    new, metrics = step(state, {k: jnp.asarray(v) for k, v in batch.items()}, key,
+                        apply_gp=True, apply_pl=False)
+    new = jax.device_get(new)
+    return dict(cfg=cfg, bundle={"params_g": params_g, "params_d": params_d, "ema": params_g,
+                                 "vq_stats": vq},
+                batch=batch, key=key, metrics={k: float(v) for k, v in metrics.items()},
+                after={"params_g": new.params_g, "params_d": new.params_d, "ema": new.ema,
+                       "vq_stats": new.vq_stats},
+                grads={"params_g": new.opt_g.previous_grad, "params_d": new.opt_d.previous_grad,
+                       "ema": new.opt_g.previous_grad})
+
+
+def test_train_step_with_the_d_options_matches_jax(jax_options_step_result, tmp_path):
+    r = jax_options_step_result
+    cfg = r["cfg"]
+    t = _port_trainer(tmp_path, r["bundle"], cfg.gradient_accumulate_every,
+                      image_size=16, **D_OPTIONS)
+    draws = jax_step_draws(r["key"], cfg, apply_pl=False)
+    assert all(a.apply for pair in draws.d_aug for a in pair)
+    batch = {k: torch.from_numpy(v) for k, v in r["batch"].items()}
+    before = {k: v.clone() for k, v in t.state.D.state_dict().items() if "quantize" in k}
+    metrics = steps.train_step(t.state, batch, draws, t.cfg, apply_gp=True, apply_pl=False)
+    assert r["metrics"]["q_loss"] > 0 and r["metrics"]["gp_loss"] > 0
+    got, want = _compare_step(t, r, metrics, LIVE)
+    for k, v in before.items():  # both phases moved the codebook, as JAX's did
+        w = want[f"D.{k}"]
+        assert not torch.equal(got[f"D.{k}"], v), k
+        assert (got[f"D.{k}"] - w).abs().max().item() <= CODEBOOK_RTOL * w.abs().max().item(), k
+
+
 def test_g_phase_leaves_no_gradient_on_d(tmp_path):
     cfg = JaxConfig(**SMALL)
     params_g, params_d = _jax_params(cfg, seed=30)
@@ -213,9 +325,9 @@ def test_merged_and_unmerged_d_forward_agree(tmp_path):
     rng = np.random.default_rng(41)
     fake, real = (torch.from_numpy(rng.random((2, 3, 32, 32), dtype=np.float32))
                   for _ in range(2))
-    merged, div, gp = steps.d_loss(t.state.D, fake, real, apply_gp=False)
-    split = losses.hinge_divergence(t.state.D(real), t.state.D(fake))
-    assert div is merged and gp.item() == 0.0
+    merged, div, q, gp = steps.d_loss(t.state.D, fake, real, apply_gp=False)
+    split = losses.hinge_divergence(t.state.D(real)[0], t.state.D(fake)[0])
+    assert abs(merged.item() - div.item()) == 0.0 and q.item() == 0.0 and gp.item() == 0.0
     assert abs(merged.item() - split.item()) <= 1e-6 * max(1.0, abs(split.item()))
     gm = torch.autograd.grad(merged, list(t.state.D.parameters()))
     gs = torch.autograd.grad(split, list(t.state.D.parameters()))

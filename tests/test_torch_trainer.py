@@ -174,9 +174,29 @@ def test_nan_rolls_back_and_raises(images, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option", [
     {"device_dataset": True}, {"calculate_fid_every": 100}, {"aug_prob": 0.5},
     {"attn_layers": (1,)}, {"fq_layers": (1,)}, {"remat": True}])
-def test_unported_options_raise(tmp_path, option):
-    with pytest.raises(NotImplementedError):
-        _trainer(tmp_path, **option)
+def test_unported_options_raise(tmp_path, images, option):
+    """The options not ported raise. DiffAugment and the discriminator's
+    attention and VQ layers, ported since, build and take the step-0 step
+    (GP, PL, save and evaluate), the codebook in D's state dict and no
+    augmentation key anywhere."""
+    (name, value), = option.items()
+    if name not in ("aug_prob", "attn_layers", "fq_layers"):
+        with pytest.raises(NotImplementedError):
+            _trainer(tmp_path, **option)
+        return
+    t = _trainer(tmp_path, aug_types=["color", "translation", "cutout", "offset"], **option)
+    t.set_data_src(str(images))
+    try:
+        m = t.train()
+    finally:
+        t.close()
+    assert all(np.isfinite(v) for v in m.values())
+    assert (m["q_loss"] > 0) == (name == "fq_layers")
+    keys = t.reference_state_dict()
+    assert not any("aug" in k for k in keys)
+    assert any(k.startswith("D.attn_blocks.0.") for k in keys) == (name == "attn_layers")
+    assert any(k.startswith("D.quantize_blocks.0.") for k in keys) == (name == "fq_layers")
+    assert getattr(t.cfg, name) == (tuple(value) if name != "aug_prob" else value)
 
 
 @pytest.mark.parametrize("option", [

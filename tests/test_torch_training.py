@@ -178,28 +178,35 @@ def test_discriminator_matches_jax(size):
     sd = {}
     convert.discriminator_state(params, "D", sd)
     d.load_state_dict({k[2:]: torch.from_numpy(v) for k, v in sd.items()}, strict=True)
-    got = d(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
+    got, got_q = d(torch.from_numpy(np.ascontiguousarray(x.transpose(0, 3, 1, 2))))
     assert got.shape == (2,)
-    assert float(qloss) == 0.0
+    assert float(qloss) == 0.0 and got_q.item() == 0.0
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want_logits), atol=ATOL_D)
 
 
 def test_discriminator_bridge_matches_export_and_refuses_unported():
-    params = random_params(JaxDiscriminator(32, 2), 9, jnp.zeros((1, 32, 32, 3)))
-    want = {}
-    jax_convert.export_discriminator(params, "D", want)
-    got = {}
-    convert.discriminator_state(params, "D", got)
-    assert set(got) == set(want)
-    for k in want:
-        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
-    assert set(got) == {f"D.{k}" for k in Discriminator(32, 2).state_dict()}
-    with pytest.raises(NotImplementedError):
-        convert.discriminator_state({**params, "attn_1_0": {}}, "D", {})
-    with pytest.raises(NotImplementedError):
-        Discriminator(32, 2, attn_layers=(1,))
-    with pytest.raises(NotImplementedError):
-        Discriminator(32, 2, fq_layers=(1,))
+    """The bridge writes export_discriminator's keys and values, with and
+    without the attention and VQ layers (which the port now builds), and
+    still refuses a key it does not know."""
+    for opts in ({}, {"attn_layers": (1,)}, {"fq_layers": (1,)}):
+        jd = JaxDiscriminator(32, 2, **opts)
+        params = random_params(jd, 9, jnp.zeros((1, 32, 32, 3)))
+        vq = ({"vq_0": {k: np.random.default_rng(1).random(s, dtype=np.float32)
+                        for k, s in (("embed", (2, 256)), ("embed_avg", (2, 256)),
+                                     ("cluster_size", (256,)))}}
+              if opts.get("fq_layers") else None)
+        want = {}
+        jax_convert.export_discriminator(params, "D", want, vq)
+        got = {}
+        convert.discriminator_state(params, "D", got, vq)
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+        assert set(got) == {f"D.{k}" for k in Discriminator(32, 2, **opts).state_dict()}
+    with pytest.raises(ValueError, match="attn_9_0"):
+        convert.discriminator_state({**params, "attn_9_0": {}}, "D", {})
+    with pytest.raises(ValueError, match="vq_9"):
+        convert.discriminator_state(params, "D", {}, {"vq_9": {}})
 
 
 def test_torch_conv_init():
