@@ -27,11 +27,34 @@ Phases, each printing its lines:
      kernels against the same on the CPU (the plain versions);
   8. train: Trainer.set_data_src on 64 written images and Trainer.train
      for steps 0-9 at 256 px, capacity 16, latent 512, style depth 8,
-     batch 16, fp32; then save, load into a new Trainer and one more step;
+     batch 16, fp32, on the default device_dataset 'auto' (the batch source
+     printed and held to DeviceDataSource, as in every phase_train run);
+     then save, load into a new Trainer and one more step;
+  F1. FID after phase 8's steps: Trainer.calculate_fid(256) with the seeded
+     random-features extractor, its seconds and value with its provenance,
+     again at the same step (the same value to FID_REPEAT_RTOL), and the
+     card's pool3 features against the CPU's on 2 images at 299 px;
   8b. the same in bf16 (precision, opt_state_dtype and ema_dtype 'bf16'),
      with one more step on the EMA schedule, whose stochastically rounded
      EMA is held to the exact fp32 EMA; the dtypes of the weights, the EMA
      and the optimizer state are checked before and after the resume;
+  DD1. the loaders: phase 8's 10 steps on the streaming loader
+     (device_dataset False: pinned batches, the next one copied on a side
+     stream behind the step), and with sync_every 4 on each source; per run
+     the plain steps' imgs/s, the device's busy share over two profiled
+     plain steps, K1 and K2 launches (exactly one each a step); then a NaN
+     injected on the card is read at the next sync step and rolls the
+     weights back to checkpoint 0;
+  DD1r. R2b's host-bound cell (reHistoGAN bf16 at 2 x 8) on both sources,
+     each syncing every step and every 4th: one trainer per source, timed
+     windows of 3 plain steps taken in turn and back (ABBA), the busy
+     share over one profiled plain step, K1 and K2 exactly 16 and 8 a step;
+  DD2. residency: a DeviceDataSource over a synthetic 4319 x 256 x 256 x 3
+     uint8 cache and a 4319 x 3 x 64 x 64 pool (the reference's landscape
+     set): torch.cuda.memory_allocated before and after, ms per batch at
+     16 x 1, at 2 x 8 with self_hist and include_g_images and with aug_prob
+     0.5, each batch held to numpy indexing of its draws and the on-card
+     crop to the CPU's crop_resize_u8;
   D1. the discriminator's options: phase 8's 10 steps, save, load and one
      more step with aug_prob 0.25 (color, translation, cutout, offset),
      attention at layers 1-2 and a VQ codebook of 256 codes at layer 3,
@@ -83,7 +106,9 @@ Phases, each printing its lines:
      --post_recoloring, on a card and a CPU trainer whose recolors take one
      noise; each card file at the size JAX's evaluate writes, each mode's
      final image from the card's recolor held to the CPU's; each mode's
-     seconds beside process_image's without post-processing;
+     seconds beside process_image's without post-processing; BGU on the
+     native solver held to BGU on scipy (BGU_NATIVE_TOL), each fit's
+     seconds and the native solver's iterations and residual per channel;
   H1. the pool CLIs: histogan-create-hist-data-torch on 8 photos (K1 8
      times at (1, 250^2)) and histogan-create-hist-sample-torch on one (K1
      once at (1, 150^2)), each held to the same command with --device cpu;
@@ -108,7 +133,7 @@ Phases, each printing its lines:
      with --post_recoloring and with --upsampling_output (pyramid): each
      file the JAX package writes, by name and size, the npz keys and shapes
      as JAX's; K1 counted on each path.
-D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b,
+DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b,
 before the phases that run steps on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
 too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
 the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
@@ -247,6 +272,11 @@ R4_PYRAMID_LEVELS = 6
 # Measured (NVIDIA H100 80GB HBM3, 700 W): at most 1.00 times (downscaling,
 # whose image is the recolor itself), BGU 0.09, the pyramid and MKL ~0.
 POST_FACTOR = 10.0
+# R4: BGU on the native solver against BGU on scipy's direct solve, the
+# final image from the same recolor: the tests' gate (tests/test_torch_post.py,
+# NATIVE_TOL). A native fit that does not reach its tol raises.
+BGU_NATIVE_TOL = 5e-3
+HIST_ATOL = 1e-6  # DD2: a gathered histogram against numpy's of the same draws
 # R3b: the recoloring step-0 step under bf16 against fp32 on the card, in
 # phase 9b's gate forms: each loss relative, each tensor's gradient cosine.
 # Measured at 256 px (NVIDIA H100 80GB HBM3, 700 W): d_loss 1.0e-3, g_loss
@@ -287,6 +317,23 @@ CODEBOOK_RTOL = 5e-6
 # flipped); about 3 times, as REHISTO_PINNED_GRAD_RTOL.
 D_OPTIONS_PINNED_GRAD_RTOL = 5e-4
 CARD = "cuda"  # the device under test
+# DD2: the reference's landscape set (histogan_tpu/data/device_source.py:9-11)
+# as a synthetic uint8 cache at 256 px and its 64-bin pool, and the batch
+# shapes each trainer draws from it
+RESIDENCY_IMAGES = 4319
+CROP_LEVELS, CROP_SHARE = 1, 1e-3  # on-card crop vs the CPU's: levels, share of entries
+# DD2: a DeviceDataSource batch must not wait for the device. Behind
+# torch.cuda._sleep of QUEUED_CYCLES (~0.1 s at the H100's 1.98 GHz) the
+# host's call took 0.66 ms at 2 x 8 (NVIDIA H100 80GB HBM3, 700 W); a sync
+# would take the whole ~100 ms
+QUEUED_CYCLES, HOST_WAIT_MS = 200_000_000, 20.0
+# F1: pool3 features, card vs CPU, on 2 images at 299 px through the seeded
+# network (fp32, TF32 off on the card). Measured (NVIDIA H100 80GB HBM3,
+# 700 W): max|d| 1.907e-6 on features up to 6.21 (3.071e-7 of the largest);
+# the gate allows about 10 times that, 100 times under JAX's own oracle gate
+# (atol 2e-4, rtol 1e-3; tests/test_inception.py)
+FID_FEATURE_ATOL, FID_FEATURE_RTOL = 2e-5, 0.0
+FID_REPEAT_RTOL = 1e-6  # calculate_fid twice at one step
 
 
 def check(ok: bool, what: str) -> None:
@@ -684,6 +731,9 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     t.set_data_src(str(data))
     pool_s = time.perf_counter() - t0
     pool_launches = histogram_cuda.launches
+    source = type(t.loader).__name__
+    print(f"{tag}: batch source {source} (device_dataset {t.device_dataset!r})")
+    check(source == "DeviceDataSource", f"{tag}: the default 'auto' holds the data on the card")
     step_ms = []
     for step in range(10):
         torch.cuda.synchronize()
@@ -699,8 +749,9 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
         check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
     counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
-    check(counts["histogram_fwd"] >= 1 and counts["histogram_bwd"] >= 1,
-          f"K1 and K2 launched on the {label} training path {counts}")
+    check(counts["histogram_fwd"] - pool_launches == 10 and counts["histogram_bwd"] == 10,
+          f"one K1 and one K2 a step on the {label} training path: {counts} with "
+          f"{pool_launches} K1 in the pool build")
     after = t.reference_state_dict()
     for prefix in ("S", "H", "G", "D"):
         keys = [k for k in after if k.split(".")[0] == prefix]
@@ -723,6 +774,11 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     if policy.get("ema_dtype") == "bf16":
         check_ema_step(t, tag)
 
+    if tag == "train":  # F1: FID after phase 8's steps
+        t0 = time.perf_counter()
+        phase_fid(t, smi)
+        print(f"seconds: phase F1 {time.perf_counter() - t0:.2f}")
+
     prefix = "" if tag == "train" else tag.replace("train ", "").replace(" ", "_") + "_"
     if profile is not None:
         profile_steps(t, profile, prefix)
@@ -732,6 +788,7 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     # save, load into a new Trainer, one more step
     book = {k: v.detach().clone() for k, v in t.state.D.named_buffers()}
     t.save(1)
+    print(f"{tag}: checkpoint model_1.pt {t.store.path(1).stat().st_size} bytes")
     pl_mean, opt_steps = t.state.pl_mean.item(), t.state.step
     t.close()
     del t
@@ -769,9 +826,10 @@ def d_keys(policy: dict) -> dict:
 def train_step_fn(t, gp: bool, pl: bool):
     """One train step of trainer ``t`` with the given flags on one batch,
     with fresh draws each call."""
+    from histogan_tpu_torch.data.device_source import take_batch
     from histogan_tpu_torch.train.steps import draw_step, train_step
 
-    batch = t._device_batch(next(t.loader))
+    batch = take_batch(t.loader, None, t.device)
     return lambda: train_step(t.state, batch, draw_step(t.gen, t.cfg, t.device, pl,
                                                         coins=t.coin_gen), t.cfg, gp, pl)
 
@@ -1565,6 +1623,7 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
     t0 = time.perf_counter()
     t.set_data_src(str(work / "data"), sampling=True)
     pool_s, pool_launches = time.perf_counter() - t0, histogram_cuda.launches
+    print(f"{tag}: batch source {type(t.loader).__name__}")
     reset_counts(histogram_cuda)
     step_ms, per_step = rehisto_steps_run(t, tag, 10, histogram_cuda)
     counts = {"histogram_fwd": histogram_cuda.launches,
@@ -1589,7 +1648,9 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
           f"K1 {per_step[0][0]}, K2 {per_step[0][1]}; in the 10 steps {counts} on {smi}")
 
     if profile is not None:
-        batch = t._device_batch(next(t.loader))
+        from histogan_tpu_torch.data.device_source import take_batch
+
+        batch = take_batch(t.loader, None, t.device)
 
         def step(gp):
             return lambda: rehisto_steps.train_step(
@@ -1647,6 +1708,7 @@ def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
     phase moves the codebook and one G phase leaves it as it is (the
     recoloringTrainer's G phase does not update it). Returns {kernel:
     launches in the 3 steps}."""
+    from histogan_tpu_torch.data.device_source import take_batch
     from histogan_tpu_torch.train import rehisto_steps
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
@@ -1669,7 +1731,7 @@ def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
     accum = cfg["gradient_accumulate_every"]
     check(all(p == (2 * accum, accum) for p in per_step),
           f"K1 and K2 launched {2 * accum} and {accum} times a step: {per_step}")
-    batch = t._device_batch(next(t.loader))
+    batch = take_batch(t.loader, None, t.device)
     draws = rehisto_steps.draw_step(t.gen, t.cfg, t.device)
     book = {k: v.clone() for k, v in t.state.D.named_buffers()}
     rehisto_steps.d_phase(t.state, batch, draws, t.cfg, apply_gp=False)
@@ -1867,7 +1929,9 @@ def phase_fullres(smi) -> dict:
     {mode: seconds of process_image on the card}."""
     from PIL import Image
 
+    from histogan_tpu_torch import native
     from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    from histogan_tpu_torch.post import bgu, bgu_native
     from histogan_tpu_torch.train import rehisto_trainer
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
@@ -1923,7 +1987,27 @@ def phase_fullres(smi) -> dict:
     real_save = rehisto_trainer.save_image_grid
     rehisto_trainer.save_image_grid = lambda x, path, nrow: (images.append(np.array(x)),
                                                              real_save(x, path, nrow))
-    secs = {}
+    # each BGU fit: its backend, seconds and (native) the solver's report
+    fits = []
+    real_fit, real_native = bgu.bgu_fit, bgu_native.bgu_fit_native
+
+    def scipy_fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        gamma = real_fit(*args, **kwargs)
+        fits.append(("scipy", time.perf_counter() - t0, None))
+        return gamma
+
+    def native_fit(*args, **kwargs):
+        t0 = time.perf_counter()
+        gamma, report = bgu_native.bgu_fit_native_report(*args, **kwargs)
+        fits.append(("native", time.perf_counter() - t0, report))
+        return gamma
+
+    t0 = time.perf_counter()
+    native.load_library()  # g++ at first use: built before the timed fits
+    print(f"R4 native BGU solver built and loaded in {time.perf_counter() - t0:.2f} s")
+    bgu.bgu_fit, bgu_native.bgu_fit_native = scipy_fit, native_fit
+    secs, card_finals = {}, {}
     try:
         for i, (mode, photo, flags) in enumerate([modes[0], *modes]):  # the first warms up
             path, size_hw = photos[photo]
@@ -1944,6 +2028,7 @@ def phase_fullres(smi) -> dict:
                 if name == "card":
                     secs[mode] = time.perf_counter() - t0
                 recolored[name], finals[name] = images[0][0], images[-1][0]
+            card_finals[mode] = finals["card"]
             kind = ("pyramid" if flags.get("upsampling_method") == "pyramid" else
                     "downscaling" if mode == "downscaling" else
                     "none" if mode == "none" else "full")
@@ -1964,7 +2049,21 @@ def phase_fullres(smi) -> dict:
                   f"process_image on the card {secs[mode]:.3f} s ({secs[mode] - secs['none']:.3f} s "
                   f"above 'none'); card vs CPU final image max|d| {gap:.3e}, the recolor's "
                   f"{rgap:.3e} (ratio {gap / rgap if rgap else 0.0:.2f}, gate {POST_FACTOR}) on {smi}")
+        gap = float(np.abs(card_finals["BGU native"] - card_finals["BGU scipy"]).max())
+        check(gap <= BGU_NATIVE_TOL, f"R4 BGU native vs scipy: max|d| {gap:.3e} <= "
+                                     f"{BGU_NATIVE_TOL}")
+        for (kind, s_fit, report), dev_name in zip(fits, ["card", "cpu"] * len(fits)):
+            solve = ("" if report is None else
+                     f", iterations per channel {list(report.iters)}, final relative residual "
+                     + "/".join(f"{r:.3e}" for r in report.residual))
+            print(f"R4 BGU fit ({kind}, the {dev_name} trainer's recolor, 256x256 to grid 16x16x8)"
+                  f": {s_fit:.3f} s{solve} on the card's host ({smi})")
+        print(f"R4 BGU native vs scipy: the card's final images max|d| {gap:.3e} (gate "
+              f"{BGU_NATIVE_TOL}); fit seconds native "
+              + "/".join(f"{f[1]:.3f}" for f in fits if f[0] == "native") + " against scipy "
+              + "/".join(f"{f[1]:.3f}" for f in fits if f[0] == "scipy"))
     finally:
+        bgu.bgu_fit, bgu_native.bgu_fit_native = real_fit, real_native
         rehisto_trainer.save_image_grid = real_save
         if backend is None:
             os.environ.pop("HISTOGAN_BGU", None)
@@ -2410,6 +2509,334 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
     return launches
 
 
+# ------------------------------------------------- the data sources and FID
+def loaders_run(histogram_cuda, smi, tag: str, **opts):
+    """Phase 8's trainer with ``opts`` (device_dataset, sync_every): the
+    pool and steps 0-9, the plain steps 5-7 timed as one window (imgs/s),
+    then two plain steps 10-11 under the profiler (the device's busy
+    share). Launches are counted over the pool build and steps 0-9, as
+    phase 8 counts them, the steps' own held to exactly one K1 and one K2
+    a step. Step 0's checkpoint is not written: a flagship checkpoint is
+    3.45 GB of the card machine's disk, which the whole script must stay
+    within (phase 8 saves and loads). Returns (trainer, source, {kernel:
+    launches}, imgs/s)."""
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    work = WORK / f"loaders_{tag.replace(' ', '_')}"
+    cfg = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1, hist_resizing="sampling",
+               seed=0, save_every=1000, **opts)
+    t = Trainer("dd", work / "results", work / "models", device=CARD, **cfg)
+    t.init_GAN()
+    t.save = lambda num: None
+    reset_counts(histogram_cuda)
+    t.set_data_src(str(WORK / "images"))
+    pool = histogram_cuda.launches
+    source = type(t.loader).__name__
+    out = [t.train() for _ in range(5)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out += [t.train() for _ in range(3)]
+    torch.cuda.synchronize()
+    window = time.perf_counter() - t0
+    out += [t.train() for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = {"histogram_fwd": histogram_cuda.launches,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    sync = t.sync_every
+    synced = [i for i, m in enumerate(out) if m is not None]
+    check(synced == [i for i in range(10) if i % sync == 0],
+          f"{tag}: metrics read back on steps {synced} (sync_every {sync})")
+    check(all(math.isfinite(v) for i in synced for v in out[i].values()),
+          f"{tag}: finite losses on the synced steps")
+    steps_k1, steps_k2 = counts["histogram_fwd"] - pool, counts["histogram_bwd"]
+    check(pool >= 1 and (steps_k1, steps_k2) == (10, 10),
+          f"{tag}: K1 {pool} in the pool build; K1 {steps_k1} and K2 {steps_k2} in the 10 "
+          f"steps, want 10 and 10")
+    rate = 3 * cfg["batch_size"] / window
+    name = "steps 10-11"
+    _, busy = profile_fns({name: lambda: [t.train() for _ in range(2)]}, WORK / "prof",
+                          f"dd1_{tag.replace(' ', '_')}_", timed=0)[name]
+    print(f"DD1 {tag}: source {source}, sync_every {sync}; steps 5-7 (plain) {1e3 * window:.2f} "
+          f"ms = {rate:.2f} imgs/s (batch 16, fp32); steps 10-11 (plain) profiled: device busy "
+          f"share {busy:.3f}; K1 {pool} in the pool build, K1 {steps_k1} and K2 {steps_k2} in "
+          f"the 10 steps on {smi}")
+    return t, source, counts, rate
+
+
+def nan_rollback_on_the_card() -> None:
+    """A trainer on the card at a small width (its checkpoint stays small)
+    with sync_every 4 on the device source: step 0 saves checkpoint 0;
+    then each step returns NaN losses and moves G (the CPU test's
+    injection): the steps that do not sync go on, the next sync step raises
+    NanException and reloads checkpoint 0."""
+    from histogan_tpu_torch.train import trainer as trainer_mod
+
+    work = WORK / "loaders_nan"
+    t = trainer_mod.Trainer("nan", work / "results", work / "models", device=CARD, image_size=32,
+                            network_capacity=2, latent_dim=32, style_depth=2, hist_bin=16,
+                            batch_size=2, gradient_accumulate_every=1, seed=0, sync_every=4)
+    t.init_GAN()
+    t.set_data_src(str(WORK / "images"))
+    check(type(t.loader).__name__ == "DeviceDataSource", "the NaN trainer's source")
+    with contextlib.redirect_stdout(io.StringIO()):
+        t.train()  # step 0: saves checkpoint 0
+    saved = t.store.restore(0)["GAN"]
+    real = trainer_mod.train_step
+
+    def nan_step(state, *args, **kwargs):
+        with torch.no_grad():
+            for p in state.G.parameters():
+                p.add_(1.0)
+        nan = torch.tensor(float("nan"), device=t.device)
+        return {k: nan for k in ("d_loss", "g_loss", "h_loss", "q_loss", "gp_loss", "pl_mean")}
+
+    t.steps = 13
+    trainer_mod.train_step = nan_step
+    raised = False
+    try:
+        quiet = [t.train() for _ in range(3)]  # steps 13-15
+        with contextlib.redirect_stdout(io.StringIO()):
+            t.train()  # step 16 syncs
+    except trainer_mod.NanException:
+        raised = True
+    finally:
+        trainer_mod.train_step = real
+        t.close()
+    got = t.reference_state_dict()
+    check(quiet == [None] * 3 and raised, "the NaN went unread on steps 13-15 and raised at 16")
+    check(all(torch.equal(got[k].cpu(), v) for k, v in saved.items()),
+          "the weights rolled back to checkpoint 0")
+    print("DD1 NaN rollback on the card (32 px, capacity 2, sync_every 4, DeviceDataSource): "
+          "steps 13-15 (no sync) went on, step 16 (sync) found the NaN and reloaded "
+          "checkpoint 0 bit for bit")
+
+
+def phase_loaders(histogram_cuda, smi) -> dict:
+    """DD1: phase 8's 10 steps on the streaming loader (the staged pinned
+    copy), and with sync_every 4 on each source; the NaN rollback on a
+    sync step. Returns {path: {kernel: launches}}."""
+    runs = {"training_streaming": dict(device_dataset=False),
+            "training_streaming_sync4": dict(device_dataset=False, sync_every=4),
+            "training_sync4": dict(sync_every=4)}
+    launches, rates = {}, {}
+    for path, opts in runs.items():
+        t, source, launches[path], rates[path] = loaders_run(histogram_cuda, smi,
+                                                             path.replace("_", " "), **opts)
+        want = "TrainLoader" if opts.get("device_dataset") is False else "DeviceDataSource"
+        check(source == want, f"DD1 {path}: source {source}, want {want}")
+        t.close()
+        del t
+        torch.cuda.empty_cache()
+    print("DD1 plain-step imgs/s: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
+    nan_rollback_on_the_card()
+    return launches
+
+
+def phase_loaders_rehisto(histogram_cuda, smi) -> dict:
+    """DD1r: R2b's host-bound cell (reHistoGAN bf16 at 2 x 8) on both
+    sources, each with sync_every 1 and 4. One trainer per source, steps
+    0-3 as the warm-up; then windows of a GP step (untimed; the step that
+    sync_every 4 syncs on) and the three plain steps after it (timed), in
+    the order of PATHS and back, so that the host's drift over the phase
+    falls on every side alike. Per source and sync: each window's imgs/s,
+    the busy share over one profiled plain step, and K1 and K2 launches,
+    exactly 16 and 8 a step. Returns {path: {kernel: launches}} (the
+    default's path is R2b's, rehisto_training_bf16)."""
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+
+    cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
+               save_every=1000, **REHISTO_BF16)
+    per_step, imgs = (2 * REHISTO_ACCUM, REHISTO_ACCUM), 2 * REHISTO_ACCUM
+    paths = {("DeviceDataSource", 1): "rehisto_training_bf16",
+             ("TrainLoader", 1): "rehisto_training_bf16_streaming",
+             ("TrainLoader", 4): "rehisto_training_bf16_streaming_sync4",
+             ("DeviceDataSource", 4): "rehisto_training_bf16_sync4"}
+    trainers = {}
+    for source, flag in (("DeviceDataSource", "auto"), ("TrainLoader", False)):
+        work = WORK / f"loaders_rehisto_{source}"
+        t = RecoloringTrainer("dd", work / "results", work / "models", device=CARD,
+                              device_dataset=flag, **cfg)
+        t.init_GAN()
+        t.save = lambda num: None  # no checkpoint (loaders_run)
+        reset_counts(histogram_cuda)
+        t.set_data_src(str(WORK / "images"), sampling=True)
+        check(type(t.loader).__name__ == source and histogram_cuda.launches >= 1,
+              f"DD1r: source {type(t.loader).__name__}, want {source}; K1 "
+              f"{histogram_cuda.launches} in the pool build")
+        for _ in range(4):
+            t.train(**REHISTO_HYPER)
+        trainers[source] = t
+    rates = {key: [] for key in paths}
+    counts = {key: {"histogram_fwd": 0, "histogram_bwd": 0} for key in paths}
+    steps = dict.fromkeys(paths, 0)
+    for key in [*paths, *reversed(paths)]:
+        t = trainers[key[0]]
+        t.sync_every = key[1]
+        reset_counts(histogram_cuda)
+        out = [t.train(**REHISTO_HYPER)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out += [t.train(**REHISTO_HYPER) for _ in range(3)]
+        torch.cuda.synchronize()
+        rates[key].append(3 * imgs / (time.perf_counter() - t0))
+        counts[key]["histogram_fwd"] += histogram_cuda.launches
+        counts[key]["histogram_bwd"] += histogram_cuda.bwd_launches
+        steps[key] += 4
+        synced = [i for i, m in enumerate(out) if m is not None]
+        check(synced == ([0, 1, 2, 3] if key[1] == 1 else [0]),
+              f"DD1r {paths[key]}: metrics read back on the window's steps {synced}")
+        check(all(math.isfinite(v) for i in synced for v in out[i].values()),
+              f"DD1r {paths[key]}: finite losses on the synced steps")
+    for key, path in paths.items():
+        t = trainers[key[0]]
+        t.sync_every = key[1]
+        t.train(**REHISTO_HYPER)  # the GP step
+        _, busy = profile_fns({"plain step": lambda: t.train(**REHISTO_HYPER)}, WORK / "prof",
+                              f"dd1r_{path}_", timed=0)["plain step"]
+        want = (steps[key] * per_step[0], steps[key] * per_step[1])
+        got = (counts[key]["histogram_fwd"], counts[key]["histogram_bwd"])
+        check(got == want, f"DD1r {path}: K1 and K2 {got} in {steps[key]} steps, want {want}")
+        print(f"DD1r {path}: source {key[0]}, sync_every {key[1]}; plain steps, two windows of "
+              f"3: {' / '.join(f'{r:.2f}' for r in rates[key])} imgs/s (batch 2 x accumulation "
+              f"{REHISTO_ACCUM}, bf16); one plain step profiled: device busy share {busy:.3f}; "
+              f"K1 {got[0]} and K2 {got[1]} in {steps[key]} steps on {smi}")
+    for t in trainers.values():
+        t.close()
+    del trainers, t
+    torch.cuda.empty_cache()
+    print("DD1r plain-step imgs/s, mean of the two windows: " + ", ".join(
+        f"{paths[k]} {sum(v) / len(v):.2f}" for k, v in rates.items()))
+    return {paths[k]: c for k, c in counts.items() if k != ("DeviceDataSource", 1)}
+
+
+def phase_residency(smi) -> None:
+    """DD2: a DeviceDataSource over the reference's landscape set as a
+    synthetic 4319 x 256 x 256 x 3 uint8 cache and a 4319 x 3 x 64 x 64
+    fp32 pool: the device memory it takes, ms per batch at HistoGAN's 16 x
+    1, reHistoGAN's 2 x 8 (self_hist, include_g_images) and with aug_prob
+    0.5, each batch held to numpy indexing of its draws (images exact,
+    histograms to HIST_ATOL) and the on-card crop to the CPU's."""
+    from histogan_tpu_torch.data.device_source import DeviceDataSource, crop_resize_u8
+
+    n, size, h = RESIDENCY_IMAGES, FLAGSHIP["image_size"], 64
+    rng = np.random.default_rng(0)
+    cache = np.frombuffer(bytearray(rng.bytes(n * size * size * 3)), np.uint8).reshape(
+        n, size, size, 3)
+    pool = rng.random((n, 3, h, h), dtype=np.float32)
+    pool /= pool.sum(axis=(1, 2, 3), keepdims=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    first = DeviceDataSource(cache, pool, 16, 1, seed=3, device=CARD)
+    torch.cuda.synchronize()
+    upload_s, after = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    check(after - before >= cache.nbytes + pool.nbytes,
+          f"DD2: the cache and the pool on the card ({after - before} bytes)")
+    print(f"DD2: {n} x {size} x {size} x 3 uint8 cache ({cache.nbytes} bytes) and {n} x 3 x {h} "
+          f"x {h} fp32 pool ({pool.nbytes} bytes): torch.cuda.memory_allocated {before} -> "
+          f"{after} (+{after - before}), uploaded in {upload_s:.2f} s on {smi}")
+    configs = {"HistoGAN 16 x 1": {},
+               "reHistoGAN 2 x 8 self_hist include_g_images": dict(
+                   batch_size=2, accum=8, self_hist=True, include_g_images=True),
+               "HistoGAN 16 x 1 aug_prob 0.5": dict(aug_prob=0.5)}
+    for name, kw in configs.items():
+        if first is not None:
+            src, first = first, None
+        else:
+            kw = {"batch_size": 16, "accum": 1, **kw}
+            with contextlib.redirect_stdout(io.StringIO()):  # the aug notice
+                src = DeviceDataSource(cache, pool, seed=4, device=CARD, **kw)
+        ms = time_ms(lambda: next(src), 20)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(QUEUED_CYCLES)
+        t0 = time.perf_counter()
+        next(src)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        check(host_ms < HOST_WAIT_MS, f"DD2 {name}: a batch behind ~0.1 s of queued device work "
+                                      f"took {host_ms:.3f} ms of the host (a sync?)")
+        recorded, real = [], src._draws
+        src._draws = lambda: recorded.append(real()) or recorded[-1]
+        worst_h, crop_off, crop_worst = 0.0, 0.0, 0
+        for _ in range(3):
+            batch = {k: v.cpu() for k, v in next(src).items()}
+            d, (a, b) = recorded[-1], (src.accum, src.batch_size)
+            for part in ("d", "g") if src.include_g_images else ("d",):
+                want = cache[d[f"{part}_idx"]]
+                got = batch[f"{part}_images"].numpy().reshape(want.shape)
+                if src.aug_prob > 0:
+                    want = crop_resize_u8(torch.from_numpy(np.array(want)),
+                                          torch.from_numpy(d[f"{part}_crop"])).numpy()
+                    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+                    crop_worst = max(crop_worst, int(diff.max()))
+                    crop_off = max(crop_off, float((diff > 0).mean()))
+                else:
+                    check(np.array_equal(got, want), f"DD2 {name}: {part}_images exact")
+            for part in ("d", "g"):
+                if src.self_hist and f"{part}_idx" in d:
+                    want = pool[d[f"{part}_idx"]]
+                else:
+                    r = d[f"{part}_r"][:, None, None, None]
+                    pair = d[f"{part}_pair"]
+                    want = r * pool[pair[0]] + (1.0 - r) * pool[pair[1]]
+                got = batch[f"{part}_hists"].numpy().reshape(want.shape)
+                worst_h = max(worst_h, float(np.abs(got - want).max()))
+            check(all(v.shape[:2] == (a, b) for v in batch.values()), f"DD2 {name}: shapes")
+        check(worst_h <= HIST_ATOL, f"DD2 {name}: histograms max|d| {worst_h:.3e} <= {HIST_ATOL}")
+        check(crop_worst <= CROP_LEVELS and crop_off <= CROP_SHARE,
+              f"DD2 {name}: on-card crop vs the CPU's: {crop_worst} levels on {crop_off:.2e} "
+              f"of the entries")
+        crop = (f"; crop vs the CPU's crop_resize_u8 at most {crop_worst} level(s) on "
+                f"{crop_off:.2e} of the entries" if src.aug_prob > 0 else "; images exact")
+        print(f"DD2 {name}: {ms:.3f} ms per batch (CUDA events over 20, host draws included), "
+              f"{host_ms:.3f} ms of the host behind queued device work; histograms vs numpy "
+              f"max|d| {worst_h:.3e}{crop}")
+        del src
+        torch.cuda.empty_cache()
+
+
+def phase_fid(t, smi) -> None:
+    """F1: Trainer.calculate_fid(256) on the card after phase 8's steps,
+    with the seeded random-features extractor, twice at the same step;
+    then card and CPU pool3 features on 2 images at 299 px."""
+    from histogan_tpu_torch.metrics import inception
+
+    n = 256
+    weights = os.environ.pop("INCEPTION_WEIGHTS", None)
+    try:
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t.calculate_fid(n)
+            torch.cuda.synchronize()
+            secs.append((time.perf_counter() - t0, t.last_fid))
+    finally:
+        if weights is not None:
+            os.environ["INCEPTION_WEIGHTS"] = weights
+    (s1, f1), (s2, f2) = secs
+    rel = abs(f2 - f1) / abs(f1)
+    check(math.isfinite(f1) and f1 > 0 and t.fid_provenance == "random-features",
+          f"F1: FID {f1} [{t.fid_provenance}]")
+    check(rel <= FID_REPEAT_RTOL, f"F1: the same step's FID twice, relative {rel:.3e}")
+    params = inception.random_params(0)
+    x = torch.from_numpy(np.random.default_rng(9).random((2, 299, 299, 3), dtype=np.float32)
+                         * 2.0 - 1.0)
+    with torch.inference_mode():
+        card = inception.InceptionPool3(params).to(CARD)(x.to(CARD)).cpu()
+        cpu = inception.InceptionPool3(params)(x)
+    gap = (card - cpu).abs()
+    excess = (gap - FID_FEATURE_ATOL - FID_FEATURE_RTOL * cpu.abs()).max().item()
+    check(excess <= 0, f"F1: card vs CPU pool3 within atol {FID_FEATURE_ATOL} + rtol "
+                       f"{FID_FEATURE_RTOL} (max|d| {gap.max().item():.3e})")
+    worst, largest = gap.max().item(), cpu.abs().max().item()
+    print(f"F1: calculate_fid({n}) at step {t.steps} (batch {t.cfg.batch_size}, {n} real + {n} "
+          f"EMA samples at {t.cfg.image_size} px): {f1:.4f} [{t.fid_provenance}] in {s1:.2f} s; "
+          f"again {f2:.4f} in {s2:.2f} s (the real features kept), relative {rel:.3e} (gate "
+          f"{FID_REPEAT_RTOL}); pool3 card vs CPU on 2 images at 299 px: max|d| {worst:.3e} "
+          f"(gate {FID_FEATURE_ATOL}) on features up to {largest:.3f} on {smi}")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -2446,6 +2873,9 @@ def main(argv=None) -> int:
     timed("7", phase_loss_gradient, dev)
     counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
+    counts_loaders = timed("DD1", phase_loaders, histogram_cuda, smi)
+    counts_loaders.update(timed("DD1r", phase_loaders_rehisto, histogram_cuda, smi))
+    timed("DD2", phase_residency, smi)
     counts_d, _, _ = timed("D1", phase_train, histogram_cuda, smi, profile, D_OPTIONS, rate,
                            "train d options")
     counts_d_bf16, _, _ = timed("D1b", phase_train, histogram_cuda, smi, profile,
@@ -2470,12 +2900,13 @@ def main(argv=None) -> int:
     check(counts_recolor["histogram_fwd"] >= 1 and counts_re["histogram_fwd"] >= 1
           and counts_re["histogram_bwd"] >= 1 and counts_recolor_bf16["histogram_fwd"] >= 1
           and counts_re_bf16["histogram_fwd"] >= 1 and counts_re_bf16["histogram_bwd"] >= 1
-          and all(c[k] >= 1 for c in (counts_d, counts_d_bf16, counts_d_re)
+          and all(c[k] >= 1 for c in (counts_d, counts_d_bf16, counts_d_re,
+                                      *counts_loaders.values())
                   for k in ("histogram_fwd", "histogram_bwd")),
           f"K1 on the recolor paths ({counts_recolor}, bf16 {counts_recolor_bf16}), K1 and K2 "
           f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16}) and on the "
           f"paths with the D options ({counts_d}, bf16 {counts_d_bf16}, reHistoGAN "
-          f"{counts_d_re})")
+          f"{counts_d_re}) and on DD1's loader paths ({counts_loaders})")
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"seconds: total {time.perf_counter() - t_start:.2f}")
 
@@ -2498,6 +2929,7 @@ def main(argv=None) -> int:
                               "training_d_options": counts_d["histogram_fwd"],
                               "training_d_options_bf16": counts_d_bf16["histogram_fwd"],
                               "rehisto_training_d_options": counts_d_re["histogram_fwd"],
+                              **{k: c["histogram_fwd"] for k, c in counts_loaders.items()},
                               "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"],
                               **counts_projection},
@@ -2516,6 +2948,7 @@ def main(argv=None) -> int:
                               "training_d_options": counts_d["histogram_bwd"],
                               "training_d_options_bf16": counts_d_bf16["histogram_bwd"],
                               "rehisto_training_d_options": counts_d_re["histogram_bwd"],
+                              **{k: c["histogram_bwd"] for k, c in counts_loaders.items()},
                               "create_hist_data": pools["create_hist_data"]["histogram_bwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],

@@ -85,8 +85,9 @@ def train_from_folder(
     fq_dict_size=256, attn_layers=(), hist_method="inverse-quadratic",
     hist_resizing="sampling", hist_sigma=0.02, hist_bin=64, hist_insz=150,
     alpha=2, aug_prob=0.0, dataset_aug_prob=0.0, aug_types=None, seed=42,
-    load_pt=None, export_pt=None, precision="fp32", calculate_fid_every=None,
-    opt_state_dtype=None, ema_dtype=None, remat=False, device="cuda",
+    load_pt=None, export_pt=None, precision="fp32", sync_every=1, device_dataset="auto",
+    calculate_fid_every=None, opt_state_dtype=None, ema_dtype=None, remat=False,
+    device="cuda",
 ):
     """Train from a folder of images (or, with ``export_pt``, write the
     loaded model as a reference-layout .pt and stop)."""
@@ -102,7 +103,8 @@ def train_from_folder(
         hist_sigma=hist_sigma, hist_resizing=hist_resizing,
         hist_method=hist_method, aug_prob=aug_prob,
         dataset_aug_prob=dataset_aug_prob, aug_types=aug_types, seed=seed,
-        precision=precision, calculate_fid_every=calculate_fid_every,
+        precision=precision, sync_every=sync_every, device_dataset=device_dataset,
+        calculate_fid_every=calculate_fid_every,
         opt_state_dtype=opt_state_dtype, ema_dtype=ema_dtype, remat=remat,
         num_workers=num_workers, device=device,
     )
@@ -256,8 +258,17 @@ def get_args(argv=None):
         help="Storage dtype of the EMA weights (default fp32); bf16 updates "
              "them in fp32 and stores them by stochastic rounding, and "
              "widens them to fp32 to sample and to export.")
+    add("--sync_every", type=int, default=1,
+        help="Fetch step metrics every N steps (1 = reference parity; "
+             "larger amortizes the per-step host sync).")
+    add("--device_dataset", default="auto", choices=("auto", "true", "false"),
+        help="Park the decoded dataset + hist pool in device memory and gather "
+             "batches on the device (auto: when eligible).")
     add("--remat", type=str2bool, default=False)
-    add("--calculate_fid_every", type=int, default=None)
+    add("--calculate_fid_every", type=int, default=None,
+        help="Score FID every N steps into results/<name>/fid_scores.txt (0 or "
+             "unset: off); pretrained InceptionV3 weights from INCEPTION_WEIGHTS, "
+             "else seeded random features.")
     add("--fq_layers", nargs="*", type=int, default=[])
     add("--fq_dict_size", type=int, default=256)
     add("--attn_layers", nargs="*", type=int, default=[])
@@ -308,7 +319,8 @@ def main(argv=None):
         hist_sigma=args.hist_sigma, hist_bin=args.hist_bin, hist_insz=args.hist_insz,
         alpha=args.alpha, aug_prob=args.aug_prob, dataset_aug_prob=args.dataset_aug_prob,
         aug_types=args.aug_types, seed=args.seed, load_pt=args.load_pt,
-        export_pt=args.export_pt, precision=precision,
+        export_pt=args.export_pt, precision=precision, sync_every=args.sync_every,
+        device_dataset={"true": True, "false": False}.get(args.device_dataset, "auto"),
         calculate_fid_every=args.calculate_fid_every,
         opt_state_dtype=args.opt_state_dtype, ema_dtype=args.ema_dtype,
         remat=args.remat, device=args.device,

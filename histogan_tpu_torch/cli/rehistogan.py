@@ -291,8 +291,11 @@ def get_args(argv=None):
     add("--precision", choices=("fp32", "bf16"), default=None,
         help="Compute dtype of training and of the recolor (bf16 on fp32 "
              "masters); overrides --fp16.")
-    add("--sync_every", type=int, default=1)
-    add("--device_dataset", default="auto", choices=("auto", "true", "false"))
+    add("--sync_every", type=int, default=1,
+        help="Fetch step metrics every N steps (1 = reference parity).")
+    add("--device_dataset", default="auto", choices=("auto", "true", "false"),
+        help="Park the decoded dataset + hist pool in device memory (auto: when "
+             "eligible).")
     add("--param_sharding", default="replicated", choices=("replicated", "fsdp"))
     add("--opt_state_dtype", default=None, choices=("fp32", "bf16"),
         help="Storage dtype of DiffGrad's moments and previous gradient "

@@ -126,6 +126,16 @@ class ImageFolderDataset:
             tmp.replace(path)  # atomic
         return np.load(path, mmap_mode="r")
 
+    def get_image(self, index: int, rng: Optional[np.random.Generator]) -> np.ndarray:
+        """One image as float32 HWC in [0, 1]: a cache hit is the cache row
+        / 255, a decode the decoded image. ``rng`` None takes the
+        deterministic center crop (FID's real images); else one rng draw per
+        item, as ``get_image_u8``."""
+        use_aug = (rng.random() < self.aug_prob) if rng is not None else False
+        if self._cache is not None and not use_aug:
+            return np.asarray(self._cache[index], np.float32) / 255.0
+        return self._decode(index, use_aug, rng)
+
     def get_image_u8(self, index: int, rng: np.random.Generator) -> np.ndarray:
         """One training image as uint8 HWC: a cache hit returns the raw
         cache row, a decode is rounded back to uint8 (lossless: every
@@ -281,6 +291,9 @@ class TrainLoader:
     the images, histoGAN/histoGAN.py:936-940; their decode is skipped).
     Images travel as uint8 and are dequantised on the device
     (``steps.dequantize_images``), four times fewer bytes to the device.
+    With ``pin_memory`` (a GPU trainer) the thread hands out each batch as
+    pinned torch tensors, ready for an asynchronous copy
+    (``device_source.stage_next_batch``).
 
     reHistoGAN's options (``histogan_tpu/data/dataset.py`` TrainLoader):
     ``include_g_images`` gives G's batches images of their own
@@ -292,8 +305,10 @@ class TrainLoader:
 
     def __init__(self, dataset: ImageFolderDataset, pool: HistogramPool,
                  batch_size: int, accum: int, seed: int = 0, prefetch: int = 2,
-                 self_hist: bool = False, include_g_images: bool = False):
+                 self_hist: bool = False, include_g_images: bool = False,
+                 pin_memory: bool = False):
         self.dataset = dataset
+        self.pin_memory = pin_memory
         self.pool = pool
         self.batch_size = batch_size
         self.accum = accum
@@ -328,8 +343,12 @@ class TrainLoader:
         return batch
 
     def _worker(self):
+        import torch
+
         while not self._stop.is_set():
             batch = self._make_batch()
+            if self.pin_memory:
+                batch = {k: torch.from_numpy(v).pin_memory() for k, v in batch.items()}
             while not self._stop.is_set():
                 try:
                     self._q.put(batch, timeout=0.5)
@@ -337,7 +356,7 @@ class TrainLoader:
                 except queue_mod.Full:
                     continue
 
-    def __next__(self) -> Dict[str, np.ndarray]:
+    def __next__(self):
         return self._q.get()
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

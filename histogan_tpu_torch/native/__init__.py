@@ -65,6 +65,7 @@ def load_library() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_double, ctypes.c_double,
             ctypes.c_int, ctypes.c_double, dp,
+            ctypes.POINTER(ctypes.c_int), dp, ctypes.POINTER(ctypes.c_int),
         ]
         lib.bgu_slice_native.restype = None
         lib.bgu_slice_native.argtypes = [

@@ -1,10 +1,16 @@
 """ctypes bindings for the native C++ BGU solver
 (histogan_tpu_torch/native/bgu_solver.cpp), copied from
-``histogan_tpu/post/bgu_native.py``."""
+``histogan_tpu/post/bgu_native.py``.
+
+The solver is a block-Jacobi preconditioned conjugate gradient. Each
+output channel reports its iterations and its final relative residual; a
+fit in which any channel stops short of ``tol`` raises ``RuntimeError``,
+so an unconverged grid is never returned.
+"""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -22,13 +28,37 @@ def _cptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
 
 
-def bgu_fit_native(input_ds: np.ndarray, edge_ds: np.ndarray,
-                   output_ds: np.ndarray,
-                   weight_ds: Optional[np.ndarray] = None,
-                   grid_size: Optional[Tuple[int, ...]] = None,
-                   lambda_spatial: float = DEFAULT_LAMBDA_SPATIAL,
-                   lambda_z: float = DEFAULT_SECOND_DERIV_LAMBDA_Z,
-                   max_iters: int = 2000, tol: float = 1e-9) -> np.ndarray:
+# the solver's per-channel status (bgu_solver.cpp)
+STATUS = {0: "converged", 1: "reached max_iters above tol", 2: "broke on p.Ap <= 0"}
+
+
+class FitReport(NamedTuple):
+    """Per output channel: CG iterations, final relative residual
+    |b - A x| / |b|, and status (a key of ``STATUS``)."""
+    iters: Tuple[int, ...]
+    residual: Tuple[float, ...]
+    status: Tuple[int, ...]
+
+
+def bgu_fit_native(*args, **kwargs) -> np.ndarray:
+    """Fit the affine bilateral grid (as ``post.bgu.bgu_fit``) by the
+    native solver. Returns gamma (gh, gw, gd, O, I+1); takes the arguments
+    of ``bgu_fit_native_report``."""
+    return bgu_fit_native_report(*args, **kwargs)[0]
+
+
+def bgu_fit_native_report(input_ds: np.ndarray, edge_ds: np.ndarray,
+                          output_ds: np.ndarray,
+                          weight_ds: Optional[np.ndarray] = None,
+                          grid_size: Optional[Tuple[int, ...]] = None,
+                          lambda_spatial: float = DEFAULT_LAMBDA_SPATIAL,
+                          lambda_z: float = DEFAULT_SECOND_DERIV_LAMBDA_Z,
+                          max_iters: int = 2000, tol: float = 1e-9
+                          ) -> Tuple[np.ndarray, FitReport]:
+    """``bgu_fit_native``'s gamma with the solver's ``FitReport``. Raises
+    RuntimeError when a channel does not reach ``tol``."""
+    import ctypes
+
     lib = load_library()
     input_ds = np.ascontiguousarray(input_ds, np.float64)
     edge_ds = np.ascontiguousarray(edge_ds, np.float64)
@@ -51,15 +81,28 @@ def bgu_fit_native(input_ds: np.ndarray, edge_ds: np.ndarray,
         wptr = _cptr(weight_arr)
 
     gamma = np.zeros((gh, gw, gd, n_out, n_in), np.float64)
-    iters = lib.bgu_fit_native(
+    iters = np.zeros(n_out, np.int32)
+    residual = np.zeros(n_out, np.float64)
+    status = np.zeros(n_out, np.int32)
+    ip = ctypes.POINTER(ctypes.c_int)
+    most = lib.bgu_fit_native(
         _cptr(input_ds), _cptr(edge_ds), _cptr(output_ds), wptr,
         h, w, in_ch, n_out, gh, gw, gd,
         float(lambda_spatial), float(lambda_z), int(max_iters), float(tol),
-        _cptr(gamma),
+        _cptr(gamma), iters.ctypes.data_as(ip), _cptr(residual), status.ctypes.data_as(ip),
     )
-    if iters < 0:
-        raise RuntimeError("native BGU fit failed")
-    return gamma
+    if most < 0:
+        raise RuntimeError(f"native BGU fit refused its arguments (image {h}x{w}x{in_ch}, "
+                           f"grid {grid_size})")
+    report = FitReport(tuple(int(i) for i in iters), tuple(float(r) for r in residual),
+                       tuple(int(s) for s in status))
+    for o, (it, res, st) in enumerate(zip(*report)):
+        if st != 0:
+            raise RuntimeError(
+                f"native BGU fit did not converge: output channel {o} {STATUS[st]} after "
+                f"{it} iterations, relative residual {res:.3e} (tol {tol:g}, max_iters "
+                f"{max_iters})")
+    return gamma, report
 
 
 def bgu_slice_native(gamma: np.ndarray, input_fs: np.ndarray,

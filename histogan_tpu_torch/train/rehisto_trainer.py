@@ -22,9 +22,15 @@ The discriminator's attention (``attn_layers``) and vector-quantize
 under ``precision='bf16'`` a VQ layer with a D block after it is refused
 with a ValueError, as in ``train/trainer.py``.
 
+The data and the sync, as in ``train/trainer.py``: ``device_dataset``
+"auto" holds the cache and the pool on the device (``DeviceDataSource``,
+with each image's own histogram for ``sampling=False`` and images for the
+G phase) when it can, else the streaming loader feeds the step;
+``sync_every`` N > 1 reads the metrics, logs and checks for NaN every N
+steps and on save steps only.
+
 Not ported yet, and refused with NotImplementedError when asked for:
-``remat``, the dataset held in device memory (``device_dataset=True``),
-more than one device or FSDP, and ``sync_every`` > 1.
+``remat``, and more than one device or FSDP.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from histogan_tpu_torch.data import device_source
 from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.rehisto import RecoloringEncoderDecoder, RecoloringGAN
 from histogan_tpu_torch.models.vectorizers import HistVectorizer
@@ -77,13 +84,10 @@ class RecoloringTrainer:
         _check_choice("precision", precision, ("fp32", "bf16"))
         _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
-        _check_choice("device_dataset", device_dataset, ("auto", True, False))
         _refuse_deferred(
             remat=bool(remat),
-            device_dataset=device_dataset is True,
             num_devices=(num_devices or 1) > 1,
             param_sharding=param_sharding == "fsdp",
-            sync_every=int(sync_every) > 1,
         )
         refuse_bf16_vq(precision, image_size, fq_layers)
         self.cfg = ReHistoGANConfig(
@@ -110,9 +114,12 @@ class RecoloringTrainer:
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.opt_state_dtype = DTYPES[opt_state_dtype]
         self.num_workers = int(num_workers) if num_workers else None
+        self.sync_every = max(1, int(sync_every))
+        self.device_dataset = device_source.normalise_flag(device_dataset)
         self.steps = 0
         self.state: Optional[ReHistoGANState] = None
         self.dataset = self.pool = self.loader = None
+        self._staged = None  # the streaming path's next batch, on its way
         self._eval_rng = np.random.default_rng(99)
 
         # the reference's print_log surface
@@ -204,8 +211,11 @@ class RecoloringTrainer:
     # ------------------------------------------------------------- data
     def set_data_src(self, folder: str, sampling: bool = True) -> None:
         """Images and histogram pool from ``folder``; with ``sampling`` the
-        targets are pool interpolations, else each image's own histogram."""
-        from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset, TrainLoader
+        targets are pool interpolations, else each image's own histogram.
+        The batches come from the ``DeviceDataSource`` or the streaming
+        loader as ``device_dataset`` resolves (both seeded 11, as in the
+        JAX package)."""
+        from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset
 
         cfg = self.cfg
         self.dataset = ImageFolderDataset(folder, cfg.image_size, cfg.transparent,
@@ -215,26 +225,25 @@ class RecoloringTrainer:
                                   cfg.transparent, cache_dir=str(self.store.dir),
                                   device=self.device)
         self.close()
-        self.loader = TrainLoader(self.dataset, self.pool, cfg.batch_size,
-                                  cfg.gradient_accumulate_every, seed=11,
-                                  prefetch=max(2, self.num_workers or 0),
-                                  self_hist=not sampling, include_g_images=True)
+        self.loader = device_source.make_source(
+            self.device_dataset, self.dataset, self.pool, cfg.batch_size,
+            cfg.gradient_accumulate_every, seed=11, num_workers=self.num_workers,
+            self_hist=not sampling, include_g_images=True, device=self.device)
         self._eval_rng = np.random.default_rng(99)
 
     def close(self) -> None:
         """Stop the loader's prefetch thread."""
+        self._staged = None
         if self.loader is not None:
             self.loader.close()
             self.loader = None
 
-    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
-
     # ------------------------------------------------------------ train
     def train(self, alpha: float = 32.0, beta: float = 1.5,
-              gamma: float = 4.0) -> Dict[str, float]:
-        """One training step on the next batch; returns its metrics."""
+              gamma: float = 4.0) -> Optional[Dict[str, float]]:
+        """One training step on the next batch. Returns its metrics as
+        floats on a step that syncs (every step at ``sync_every`` 1; else
+        every ``sync_every``-th step and every save step), else None."""
         if self.loader is None:
             raise RuntimeError("You must first initialize the data source with "
                                "`.set_data_src(<folder of images>)`")
@@ -245,25 +254,28 @@ class RecoloringTrainer:
             alpha, gamma, beta = 8.0, 2.0, 1.0  # rehistoGAN.py:900-905
         apply_gp = steps % 4 == 0
 
-        batch = self._device_batch(next(self.loader))
+        batch = device_source.take_batch(self.loader, self._staged, self.device)
         draws = draw_step(self.gen, cfg, self.device)
         metrics = train_step(self.state, batch, draws, cfg, apply_gp,
                              float(alpha), float(beta), float(gamma))
+        self._staged = device_source.stage_next_batch(self.loader, self.device)
 
         checkpoint_num = steps // cfg.save_every
-        names = sorted(metrics)
-        m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
-        self.metrics_logger.log(steps, m)
-        self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
-        self.r_loss, self.var_loss, self.q_loss = m["r_loss"], m["var_loss"], m["q_loss"]
-        if apply_gp:
-            self.last_gp_loss = m["gp_loss"]
+        m = None
+        if self.sync_every == 1 or steps % self.sync_every == 0 or steps % cfg.save_every == 0:
+            names = sorted(metrics)
+            m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
+            self.metrics_logger.log(steps, m)
+            self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
+            self.r_loss, self.var_loss, self.q_loss = m["r_loss"], m["var_loss"], m["q_loss"]
+            if apply_gp:
+                self.last_gp_loss = m["gp_loss"]
 
-        if math.isnan(self.g_loss) or math.isnan(self.d_loss):
-            print(f"NaN detected for generator or discriminator. "
-                  f"Loading from checkpoint #{checkpoint_num}")
-            self.load(checkpoint_num)
-            raise NanException
+            if math.isnan(self.g_loss) or math.isnan(self.d_loss):
+                print(f"NaN detected for generator or discriminator. "
+                      f"Loading from checkpoint #{checkpoint_num}")
+                self.load(checkpoint_num)
+                raise NanException
 
         if steps % cfg.save_every == 0:
             self.save(checkpoint_num)

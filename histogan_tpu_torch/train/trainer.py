@@ -25,9 +25,24 @@ attention (``attn_layers``) and the vector-quantize codebook
 Under ``precision='bf16'`` a VQ layer with a D block after it is refused
 with a ValueError, as the JAX package cannot run it either.
 
-Not ported yet, and refused with NotImplementedError when asked for: the
-dataset held in device memory (``device_dataset``), FID tracking
-(``calculate_fid_every``) and ``remat``.
+The data: ``device_dataset`` "auto" (the default, as in the JAX package)
+holds the decoded uint8 cache and the histogram pool in device memory and
+gathers each batch there (``data/device_source.py``) when a cache exists,
+no dataset augmentation needs the host and it fits the budget; else the
+streaming loader feeds the step, its next batch copied to the device
+behind the step. ``sync_every`` N > 1 reads the step's metrics back to the
+host only every N steps (and on save steps): the log, the NaN check and
+the rollback run on those steps only.
+
+FID (``calculate_fid_every``): every N steps ``calculate_fid`` scores
+``fid_num_samples`` EMA samples against the dataset's images with
+InceptionV3's pool3 features (``metrics/``), and appends
+``step,fid,provenance`` to ``results/<name>/fid_scores.txt``. Its draws
+come from generators of its own, so it leaves the training draws as they
+are.
+
+Not ported yet, and refused with NotImplementedError when asked for:
+``remat``.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from histogan_tpu_torch.data import device_source
 from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.generator import Generator
 from histogan_tpu_torch.models.vectorizers import HistVectorizer, StyleVectorizer
@@ -67,6 +83,9 @@ class NanException(Exception):
 EMA_SEED_OFFSET = 0x454D41
 # the AugWrapper's host generator is seeded with seed + this ("AUG")
 COIN_SEED_OFFSET = 0x415547
+# FID's streams (the JAX package's seeds): the real images, the target
+# histograms (+ the step) and the latents and noise
+FID_REAL_SEED, FID_HIST_SEED, FID_DRAW_SEED = 4242, 4243, 24242
 DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16}
 
 
@@ -91,16 +110,13 @@ class Trainer:
                  hist_sigma=0.02, hist_bin=64, hist_insz=150,
                  aug_prob=0.0, dataset_aug_prob=0.0, aug_types=None,
                  latent_dim=512, style_depth=8, seed=42, precision="fp32",
-                 calculate_fid_every=None, device_dataset=False, opt_state_dtype=None,
+                 sync_every=1, calculate_fid_every=None, fid_num_samples=256,
+                 fid_extractor=None, device_dataset="auto", opt_state_dtype=None,
                  ema_dtype=None, remat=False, num_workers=None, device="cuda"):
         _check_choice("precision", precision, ("fp32", "bf16"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
         _check_choice("ema_dtype", ema_dtype, (None, "fp32", "bf16"))
-        _refuse_deferred(
-            device_dataset=bool(device_dataset),
-            calculate_fid_every=bool(calculate_fid_every),
-            remat=bool(remat),
-        )
+        _refuse_deferred(remat=bool(remat))
         refuse_bf16_vq(precision, image_size, fq_layers)
         self.cfg = HistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
@@ -126,11 +142,21 @@ class Trainer:
         self.coin_gen = torch.Generator().manual_seed(self.seed + COIN_SEED_OFFSET)
         self.opt_state_dtype, self.ema_dtype = DTYPES[opt_state_dtype], DTYPES[ema_dtype]
         self.num_workers = int(num_workers) if num_workers else None
+        self.sync_every = max(1, int(sync_every))
+        self.device_dataset = device_source.normalise_flag(device_dataset)
         self.steps = 0
         self.av: Optional[torch.Tensor] = None
         self.state: Optional[HistoGANState] = None
         self.dataset = self.pool = self.loader = None
+        self._staged = None  # the streaming path's next batch, on its way
         self._eval_rng = np.random.default_rng(1234)
+
+        self.calculate_fid_every = calculate_fid_every
+        self.fid_num_samples = int(fid_num_samples)
+        self._fid_extractor = fid_extractor  # None: metrics.default_extractor
+        self._fid_scorer = None
+        self.last_fid: Optional[float] = None
+        self.fid_provenance: Optional[str] = None
 
         # the reference's print_log surface
         self.d_loss = self.g_loss = self.h_loss = 0.0
@@ -216,7 +242,11 @@ class Trainer:
 
     # ------------------------------------------------------------- data
     def set_data_src(self, folder: str) -> None:
-        from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset, TrainLoader
+        """Images and histogram pool from ``folder``, and the batch source:
+        the ``DeviceDataSource`` when ``device_dataset`` resolves to it, else
+        the streaming ``TrainLoader`` (both seeded 7, as in the JAX
+        package)."""
+        from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset
 
         cfg = self.cfg
         self.dataset = ImageFolderDataset(folder, cfg.image_size, cfg.transparent,
@@ -226,24 +256,27 @@ class Trainer:
                                   cfg.transparent, cache_dir=str(self.store.dir),
                                   device=self.device)
         self.close()
-        self.loader = TrainLoader(self.dataset, self.pool, cfg.batch_size,
-                                  cfg.gradient_accumulate_every, seed=7,
-                                  prefetch=max(2, self.num_workers or 0))
+        self.loader = device_source.make_source(
+            self.device_dataset, self.dataset, self.pool, cfg.batch_size,
+            cfg.gradient_accumulate_every, seed=7, num_workers=self.num_workers,
+            device=self.device)
+        self._fid_scorer = None  # new data: new real statistics
         self._eval_rng = np.random.default_rng(1234)
 
     def close(self) -> None:
         """Stop the loader's prefetch thread."""
+        self._staged = None
         if self.loader is not None:
             self.loader.close()
             self.loader = None
 
-    def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device, non_blocking=True)
-                for k, v in batch.items()}
-
     # ------------------------------------------------------------ train
-    def train(self, alpha: float = 2.0) -> Dict[str, float]:
-        """One training step on the next batch; returns its metrics."""
+    def train(self, alpha: float = 2.0) -> Optional[Dict[str, float]]:
+        """One training step on the next batch. On a step that syncs (every
+        step at ``sync_every`` 1; else every ``sync_every``-th step and
+        every save step) returns its metrics as floats, after the log and
+        the NaN check; on any other step returns None, its metrics left on
+        the device unread."""
         if self.loader is None:
             raise RuntimeError("You must first initialize the data source with "
                                "`.set_data_src(<folder of images>)`")
@@ -259,32 +292,42 @@ class Trainer:
         apply_ema = steps > 20000 and steps % 10 == 0
         apply_reset = steps <= 25000 and steps % 1000 == 2
 
-        batch = self._device_batch(next(self.loader))
+        batch = device_source.take_batch(self.loader, self._staged, self.device)
         draws = draw_step(self.gen, cfg, self.device, apply_pl, coins=self.coin_gen)
         metrics = train_step(self.state, batch, draws, cfg, apply_gp, apply_pl, apply_ema)
+        self._staged = device_source.stage_next_batch(self.loader, self.device)
         if apply_reset:
             self.state.reset_ema()
 
         checkpoint_num = steps // cfg.save_every
-        names = sorted(metrics)
-        m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
-        self.metrics_logger.log(steps, m)
-        self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
-        self.q_loss = m["q_loss"]
-        if apply_gp:
-            self.last_gp_loss = m["gp_loss"]
-        self.pl_mean = m["pl_mean"]
+        m = None
+        if self.sync_every == 1 or steps % self.sync_every == 0 or steps % cfg.save_every == 0:
+            names = sorted(metrics)
+            m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
+            self.metrics_logger.log(steps, m)
+            self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
+            self.q_loss = m["q_loss"]
+            if apply_gp:
+                self.last_gp_loss = m["gp_loss"]
+            self.pl_mean = m["pl_mean"]
 
-        if math.isnan(self.g_loss) or math.isnan(self.d_loss):
-            print(f"NaN detected for generator or discriminator. "
-                  f"Loading from checkpoint #{checkpoint_num}")
-            self.load(checkpoint_num)
-            raise NanException
+            if math.isnan(self.g_loss) or math.isnan(self.d_loss):
+                print(f"NaN detected for generator or discriminator. "
+                      f"Loading from checkpoint #{checkpoint_num}")
+                self.load(checkpoint_num)
+                raise NanException
 
         if steps % cfg.save_every == 0:
             self.save(checkpoint_num)
         if steps % 1000 == 0 or (steps % 100 == 0 and steps < 2500):
             self.evaluate(steps // 1000)
+        # 0 disables it, as None does (the CLI's flag is an int)
+        if self.calculate_fid_every and steps % self.calculate_fid_every == 0:
+            fid = self.calculate_fid()
+            prov = self.fid_provenance
+            print(f"FID @ step {steps}: {fid:.4f} [{prov}]")
+            with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
+                f.write(f"{steps},{fid:.4f},{prov}\n")
 
         self.steps += 1
         self.av = None
@@ -348,11 +391,78 @@ class Trainer:
             return ema
         return {k: copy.deepcopy(m).float() for k, m in ema.items()}
 
+    def _fid_draws(self, step: int, s: int, take: int):
+        """The latents (take, latent) and noise (take, S, S, 1) of FID's
+        samples ``s .. s + take`` at ``step``, from a CPU generator seeded
+        from (FID_DRAW_SEED, step, s), on the device."""
+        seed = np.random.SeedSequence((FID_DRAW_SEED, step, s)).generate_state(1, np.uint64)[0]
+        gen = torch.Generator().manual_seed(int(seed))
+        size = self.cfg.image_size
+        latents = torch.randn((take, self.cfg.latent_dim), generator=gen)
+        noise = torch.rand((take, size, size, 1), generator=gen)
+        return latents.to(self.device), noise.to(self.device)
+
     @torch.inference_mode()
-    def compute_av(self, S: nn.Module) -> torch.Tensor:
+    def calculate_fid(self, num_samples: Optional[int] = None) -> float:
+        """FID between ``num_samples`` EMA samples (truncated at
+        ``trunc_psi``, toward histograms of random pool entries) and the
+        dataset's images (center crops). The real features are computed
+        once and kept; the samples' each call. The extractor is
+        ``fid_extractor``, else the pretrained InceptionV3 behind
+        ``INCEPTION_WEIGHTS``, else the seeded random-weight one
+        (``metrics/fid.py``); ``fid_provenance`` says which. The draws
+        (``_fid_draws``, the histogram and image indices, and the
+        truncation center when none is cached) come from generators of
+        their own: the training draws are as without FID."""
+        if self.pool is None:
+            raise RuntimeError("calculate_fid scores against the data: call set_data_src first")
+        from histogan_tpu_torch.metrics import FIDScorer, default_extractor
+
+        if self._fid_scorer is None:
+            self._fid_scorer = FIDScorer(self._fid_extractor or default_extractor(self.device))
+        scorer = self._fid_scorer
+        n = int(num_samples or self.fid_num_samples)
+        bs = max(1, self.cfg.batch_size)
+
+        if scorer.num_real < n:
+            scorer.reset()
+            rng = np.random.default_rng(FID_REAL_SEED)
+            for s in range(0, n, bs):
+                idx = rng.integers(0, len(self.dataset), size=min(bs, n - s))
+                # rng None: the deterministic center crop
+                imgs = np.stack([self.dataset.get_image(int(i), None) for i in idx])
+                scorer.add_real(imgs[..., :3])  # the extractor's stem is RGB
+
+        scorer.reset(real=False)
+        params = self._ema_params()
+        hist_rng = np.random.default_rng(FID_HIST_SEED + self.steps)
+        cached_av = self.av
+        if cached_av is None:
+            gen = torch.Generator(device=self.device).manual_seed(FID_DRAW_SEED + self.steps)
+            self.av = self.compute_av(params["S"], gen)
+        try:
+            for s in range(0, n, bs):
+                take = min(bs, n - s)
+                idx = hist_rng.integers(0, len(self.pool), size=take)
+                hist = torch.from_numpy(self.pool.self_hist(idx)).to(self.device)
+                latents, noise = self._fid_draws(self.steps, s, take)
+                imgs = self.generate_truncated(params, hist, latents, noise,
+                                               trunc_psi=self.cfg.trunc_psi)
+                scorer.add_generated(imgs[..., :3].cpu().numpy())  # RGB only
+        finally:
+            self.av = cached_av
+        self.last_fid = scorer.score()
+        self.fid_provenance = scorer.provenance
+        return self.last_fid
+
+    @torch.inference_mode()
+    def compute_av(self, S: nn.Module, generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
         """Mean w over 2000 z draws (truncation center,
-        histoGAN/histoGAN.py:1068-1072)."""
-        z = torch.randn((2000, self.cfg.latent_dim), generator=self.gen, device=self.device)
+        histoGAN/histoGAN.py:1068-1072), from ``generator`` or the
+        trainer's."""
+        z = torch.randn((2000, self.cfg.latent_dim), generator=generator or self.gen,
+                        device=self.device)
         return S(z).mean(dim=0, keepdim=True)
 
     @torch.inference_mode()

@@ -7,7 +7,8 @@ BGU (``bgu_fit``, ``bgu_slice``, ``bgu_upsample``) are float64 numpy on
 both sides, so they are held to 1e-12. The native (C++) BGU solves the
 same system by conjugate gradient instead of a direct solve, so it is
 held to the scipy backend at the tolerance of ``tests/test_bgu_native.py``
-(5e-3 on the sliced image).
+(5e-3 on the sliced image) and, at a full 256x256 fit where it must reach
+its tol, to 1e-4 of the grid's largest entry and 1e-5 on the image.
 """
 
 import importlib
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 from histogan_tpu_torch import native
+from histogan_tpu_torch.tools.bgu_fit_timing import photo_fit
 
 # the modules, not the functions that the packages' post/__init__ exports
 # under the same names
@@ -168,6 +170,33 @@ def test_native_bgu_matches_the_scipy_backend():
     # the slice itself is exact: the same gamma through both slicers
     np.testing.assert_allclose(bgu_native.bgu_slice_native(g_scipy, img, full_edge),
                                bgu.bgu_slice(g_scipy, img, full_edge), rtol=0, atol=1e-10)
+
+
+@needs_gxx
+def test_native_bgu_converges_at_a_full_size_fit():
+    """A 256x256 fit (grid 16x16x8): the native solver reaches its tol in
+    every channel, and its grid and sliced image are scipy's direct solve's."""
+    photo, ds_in, edge, ds_out = photo_fit()
+    g_scipy = bgu.bgu_fit(ds_in, edge, ds_out)
+    g_native, report = bgu_native.bgu_fit_native_report(ds_in, edge, ds_out)
+    assert g_native.shape == g_scipy.shape == (16, 16, 8, 3, 4)
+    assert report.status == (0, 0, 0) and max(report.residual) <= 1e-9
+    assert 0 < max(report.iters) < 2000
+    scale = np.abs(g_scipy).max()
+    assert np.abs(g_native - g_scipy).max() <= 1e-4 * scale
+    full_edge = bgu.rgb2luminance(photo)
+    np.testing.assert_allclose(bgu_native.bgu_slice_native(g_native, photo, full_edge),
+                               bgu.bgu_slice(g_scipy, photo, full_edge), rtol=0, atol=1e-5)
+
+
+@needs_gxx
+def test_native_bgu_raises_when_it_does_not_converge():
+    """A fit that stops at max_iters above tol raises with the channel, the
+    iterations and the residual; it never returns that grid."""
+    _, ds_in, edge, ds_out = photo_fit(96, 128, 64)
+    with pytest.raises(RuntimeError, match=r"channel 0 .* after 5 iterations, relative "
+                                           r"residual \d\.\d+e[-+]\d+"):
+        bgu_native.bgu_fit_native(ds_in, edge, ds_out, max_iters=5)
 
 
 @needs_gxx

@@ -429,8 +429,19 @@ def test_refused_options(tmp_path, images):
             t.cfg.attn_layers == kw.get("attn_layers", ())
         assert any(k.startswith(("D.attn_blocks.0.", "D.quantize_blocks.0."))
                    for k in t.reference_state_dict())
-    for kw in (dict(remat=True), dict(device_dataset=True), dict(num_devices=2),
-               dict(param_sharding="fsdp"), dict(sync_every=4)):
+    # the dataset held on the device and sync_every are ported: they train
+    for kw in (dict(device_dataset=True), dict(sync_every=4)):
+        t = _trainer(tmp_path / "on", **kw)
+        t.init_GAN()
+        t.set_data_src(str(images))
+        try:
+            assert type(t.loader).__name__ == "DeviceDataSource"
+            out = [t.train(32, 1.5, 4) for _ in range(2)]
+        finally:
+            t.close()
+        assert out[0] is not None and (out[1] is None) == ("sync_every" in kw)
+        assert all(np.isfinite(v) for v in out[0].values())
+    for kw in (dict(remat=True), dict(num_devices=2), dict(param_sharding="fsdp")):
         with pytest.raises(NotImplementedError):
             _trainer(tmp_path, **kw)
     with pytest.raises(ValueError):
@@ -443,13 +454,15 @@ def test_refused_options(tmp_path, images):
     # the CLI passes what the trainer refuses on (bf16, upsampling,
     # post-recoloring and face extraction are ported: their tests are
     # tests/test_torch_rehisto_bf16.py and tests/test_torch_rehisto_post.py)
-    for extra in (["--remat", "True"], ["--num_devices", "2"], ["--sync_every", "2"]):
+    for extra in (["--remat", "True"], ["--num_devices", "2"]):
         with pytest.raises(NotImplementedError):
             cli.main([*dirs, *extra])
     # --fq_layers and --attn_layers reach the trainer, which trains with them
+    # and so do --sync_every and --device_dataset
     cli.main([*dirs, "--data", str(images), "--name", "opts", "--hist_bin", "16",
               "--fq_layers", "3", "--attn_layers", "2", "--batch_size", "2",
-              "--gradient_accumulate_every", "1", "--num_train_steps", "1"])
+              "--gradient_accumulate_every", "1", "--num_train_steps", "1",
+              "--sync_every", "2", "--device_dataset", "false"])
     saved = torch.load(tmp_path / "mod" / "opts" / "model_0.pt", weights_only=True)["GAN"]
     assert "D.quantize_blocks.2.fn.embed" in saved and "D.attn_blocks.1.0.fn.g" in saved
 

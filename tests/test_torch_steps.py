@@ -258,12 +258,13 @@ def _compare_step(t, r, metrics, live):
     return got, want
 
 
-@pytest.fixture(scope="module")
-def jax_options_step_result():
-    """One JAX GP step at accumulation 2 with DiffAugment (aug_prob 1:
-    every function runs), attention at layers 1-2 and a VQ codebook at
+@pytest.fixture(scope="module", params=[1, 2], ids=["accum1", "accum2"])
+def jax_options_step_result(request):
+    """One JAX GP step at accumulation 1 and at 2 with DiffAugment (aug_prob
+    1: every function runs), attention at layers 1-2 and a VQ codebook at
     layer 3, 16 px: the codebook carried across both phases' micro-batches."""
-    cfg = JaxConfig(gradient_accumulate_every=2, **{**SMALL, "image_size": 16}, **D_OPTIONS)
+    cfg = JaxConfig(gradient_accumulate_every=request.param, **{**SMALL, "image_size": 16},
+                    **D_OPTIONS)
     params_g, params_d = _jax_params(cfg, seed=60)
     vq = _jax_vq(cfg, seed=61)
     models = jax_steps.Models(

@@ -175,22 +175,33 @@ def test_nan_rolls_back_and_raises(images, tmp_path, monkeypatch):
     {"device_dataset": True}, {"calculate_fid_every": 100}, {"aug_prob": 0.5},
     {"attn_layers": (1,)}, {"fq_layers": (1,)}, {"remat": True}])
 def test_unported_options_raise(tmp_path, images, option):
-    """The options not ported raise. DiffAugment and the discriminator's
-    attention and VQ layers, ported since, build and take the step-0 step
-    (GP, PL, save and evaluate), the codebook in D's state dict and no
-    augmentation key anywhere."""
+    """The options not ported raise. DiffAugment, the discriminator's
+    attention and VQ layers, the dataset held on the device and FID,
+    ported since, build and take the step-0 step (GP, PL, save and
+    evaluate; FID too), the codebook in D's state dict and no augmentation
+    key anywhere."""
     (name, value), = option.items()
-    if name not in ("aug_prob", "attn_layers", "fq_layers"):
+    if name == "remat":
         with pytest.raises(NotImplementedError):
             _trainer(tmp_path, **option)
         return
-    t = _trainer(tmp_path, aug_types=["color", "translation", "cutout", "offset"], **option)
+    extra = {"fid_num_samples": 2} if name == "calculate_fid_every" else {}
+    t = _trainer(tmp_path, aug_types=["color", "translation", "cutout", "offset"], **option,
+                 **extra)
     t.set_data_src(str(images))
+    source = type(t.loader).__name__
     try:
         m = t.train()
     finally:
         t.close()
     assert all(np.isfinite(v) for v in m.values())
+    if name in ("device_dataset", "calculate_fid_every"):
+        assert source == "DeviceDataSource" and getattr(t, name) == value
+        assert (t.last_fid is not None) == (name == "calculate_fid_every")
+        if name == "calculate_fid_every":
+            assert np.isfinite(t.last_fid) and t.fid_provenance == "random-features"
+            assert (tmp_path / "r" / "t" / "fid_scores.txt").read_text().startswith("0,")
+        return
     assert (m["q_loss"] > 0) == (name == "fq_layers")
     keys = t.reference_state_dict()
     assert not any("aug" in k for k in keys)
