@@ -133,7 +133,37 @@ Phases, each printing its lines:
      with --post_recoloring and with --upsampling_output (pyramid): each
      file the JAX package writes, by name and size, the npz keys and shapes
      as JAX's; K1 counted on each path.
-DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2 and P3 run after phase 8b,
+  RM. remat at the main path's width and batch (256 px, capacity 16,
+     batch 16, fp32): a plain and a GP+PL step, each from the seed's
+     weights, with remat and without, on the same pinned inputs: the metrics to 5e-5, the
+     parameters after them and the gradients each phase of both steps
+     hands to DiffGrad (G's also from its phase alone, against the seed's
+     D) to a global-norm relative error of 1e-5 (the JAX
+     package's gates), or 3 times what the same step without remat
+     moves when run twice (the card's atomics), K1 and K2 launched alike;
+     one more plain and GP+PL step each way, timed, with
+     torch.cuda.max_memory_allocated;
+     R5, one bf16 recoloring GP step at the CLI's defaults with remat and
+     without (the bf16 cast's functional_call under the checkpoint): its
+     metrics to 1e-2, its D and G gradients as RM's; R512,
+     the JAX package's 512 px recipe (capacity 16, batch 8, bf16, bf16
+     DiffGrad state) with and without remat, each step's ms and peak;
+  DP. data parallel: tools/dp_step.py spawns 2 ranks on the one card over
+     gloo (NCCL takes one rank a GPU) at a global batch of 8 (256 px,
+     capacity 16): 3 pinned steps (GP+PL, plain, GP) against the same steps
+     in this process: step 0's D losses to 5e-5 and D's step-0 gradient to
+     1e-5 (before any update), the rest to bounds on the GAN's drift
+     (DP_G_METRIC_RTOL, DP_DRIFT_*), the ranks' parameters bitwise equal,
+     K1 and K2 on every rank, each step's ms; then ``torchrun --nproc_per_node
+     1 -m histogan_tpu_torch.cli.histogan ... --num_devices 1`` over NCCL
+     for 2 steps (capacity 4: its step-0 checkpoint stays small);
+  DB. checkify_step around a plain 256 px batch 16 step passes and sees the
+     backward's ops (convolution_backward) on the card, with its seconds
+     beside the step's; with one D weight NaN it raises naming the op;
+  PF. Trainer.enable_profiling(1, 2) on a 3-step run writes a Chrome trace
+     of steps 1-2 holding K1's and K2's kernels.
+DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2, P3, RM, DP, DB and PF
+run after phase 8b,
 before the phases that run steps on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
 too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
 the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
@@ -147,7 +177,6 @@ from __future__ import annotations
 import argparse
 import contextlib
 import copy
-import dataclasses
 import io
 import json
 import math
@@ -360,23 +389,26 @@ def device_ms(fn, reps: int = 50) -> float:
     launches once each, from torch.profiler's device events over ``reps``
     calls (the wrapper's host work left out). The profiler may drop an
     event now and then, so each kernel's time is averaged over the
-    launches it recorded."""
+    launches it recorded. A session may come back with no device events,
+    or with most of them dropped: it is profiled again, up to 5 times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):  # a session may come back with no device events at all
+    for attempt in range(5):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA and "hist_" in e.key]
-        if events:
+        recorded = bool(events) and all(reps // 2 <= e.count <= reps for e in events)
+        if recorded:
             break
-        print(f"profiler: session {attempt + 1} recorded no hist_ kernel; profiling again")
-    check(bool(events) and all(reps // 2 <= e.count <= reps for e in events),
+        print(f"profiler: session {attempt + 1} recorded the hist_ kernels "
+              f"{[(e.key[:40], e.count) for e in events]} times of {reps}; profiling again")
+    check(recorded,
           f"the profiler saw each hist_ kernel up to {reps} times: "
           f"{[(e.key[:40], e.count) for e in events]}")
     return sum(e.self_device_time_total / e.count for e in events) / 1e3
@@ -962,19 +994,6 @@ def diffgrad_first_move(g: torch.Tensor) -> torch.Tensor:
     return torch.sigmoid(g.abs()) * g / (g.abs() + 1e-8 / math.sqrt(1.0 - 0.9))
 
 
-def to_device(d, x):
-    """``x`` (a tensor, or dicts, lists and dataclasses of them) on ``d``."""
-    if torch.is_tensor(x):
-        return x.to(d)
-    if isinstance(x, dict):
-        return {k: to_device(d, v) for k, v in x.items()}
-    if isinstance(x, (list, tuple)):
-        return type(x)(to_device(d, v) for v in x)
-    if dataclasses.is_dataclass(x):
-        return type(x)(**{f.name: to_device(d, getattr(x, f.name)) for f in dataclasses.fields(x)})
-    return x
-
-
 def applied_grads(t, prefixes=("S", "H", "G", "D")) -> dict:
     """{reference name: (parameter, the gradient its optimizer last applied)}."""
     return {f"{p}.{n}": (w, (t.state.opt_d if p == "D" else t.state.opt_g).state[w]["previous_grad"])
@@ -1001,6 +1020,7 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool, pin: bool = False,
     with ``options``, the discriminator's (D1)."""
     from histogan_tpu_torch.train.steps import train_step
     from histogan_tpu_torch.train.trainer import Trainer
+    from histogan_tpu_torch.tools.dp_step import to_device
 
     options = options or {}
     work = WORK / "card_vs_cpu"
@@ -1018,7 +1038,7 @@ def card_vs_cpu_step(apply_gp: bool, apply_pl: bool, pin: bool = False,
     check(not options or all(a.apply for pair in draws.d_aug for a in pair),
           "every augmentation function runs")
     return compare_card_cpu_step(
-        tr, lambda t: train_step(t.state, to_device(t.device, batch), to_device(t.device, draws),
+        tr, lambda t: train_step(t.state, to_device(batch, t.device), to_device(draws, t.device),
                                  t.cfg, apply_gp=apply_gp, apply_pl=apply_pl),
         names, ("S", "H", "G", "D"), f"step 0 ({flags}) {cfg['image_size']} px batch 2"
         + (f" with {json.dumps(d_keys(options))}" if options else ""), pinned=pinned,
@@ -1306,6 +1326,8 @@ def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False)
     R3's batch and noise. The optimizer's state is fp32, so it keeps the
     gradients as they were applied. Returns (metrics, {name: gradient on
     the CPU}, s)."""
+    from histogan_tpu_torch.tools.dp_step import to_device
+
     if rehisto:
         from histogan_tpu_torch.train import rehisto_steps
         from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer as trainer
@@ -1326,7 +1348,7 @@ def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False)
         draws = rehisto_steps.draw_step(torch.Generator().manual_seed(8), t.cfg, "cpu")
     else:
         batch, draws = step_batch(size, t.cfg)
-    batch, draws = to_device(t.device, batch), to_device(t.device, draws)
+    batch, draws = to_device(batch, t.device), to_device(draws, t.device)
     t0 = time.perf_counter()
     if rehisto:
         m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, True, **REHISTO_HYPER)
@@ -1790,6 +1812,7 @@ def phase_rehisto_card_vs_cpu() -> None:
     gap is on (``compare_card_cpu_step``)."""
     from histogan_tpu_torch.train import rehisto_steps
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+    from histogan_tpu_torch.tools.dp_step import to_device
 
     work = WORK / "rehisto_card_vs_cpu"
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=1, seed=3)
@@ -1806,7 +1829,7 @@ def phase_rehisto_card_vs_cpu() -> None:
         exact = rehisto_exact_grads(cfg, batch, draws, apply_gp, work)
         compare_card_cpu_step(
             tr, lambda t: rehisto_steps.train_step(
-                t.state, to_device(t.device, batch), to_device(t.device, draws), t.cfg,
+                t.state, to_device(batch, t.device), to_device(draws, t.device), t.cfg,
                 apply_gp, **REHISTO_HYPER),
             names, REHISTO_PARTS,
             f"reHistoGAN step 0 ({'GP' if apply_gp else 'plain'}) {size} px batch 2", exact,
@@ -2837,6 +2860,486 @@ def phase_fid(t, smi) -> None:
           f"(gate {FID_FEATURE_ATOL}) on features up to {largest:.3f} on {smi}")
 
 
+# ---------------------------- remat, data parallel, the debug step, the profiler hook
+# Remat against no remat, and 2 ranks against one process (the JAX
+# package's gates, tests/test_parallel.py:400-450 and tests/test_remat.py):
+# each metric to REMAT_METRIC_RTOL, the post-step parameters (S, H, G, D)
+# and the gradients handed to DiffGrad to a global-norm relative error of
+# REMAT_PARAM_REL. Remat recomputes the
+# same kernels on the same inputs, and the ranks' all-reduce sums in
+# another order; DiffGrad's sign-like first update turns a near-zero
+# gradient's rounding into a full lr, which the global norm absorbs.
+REMAT_METRIC_RTOL = 5e-5
+REMAT_PARAM_REL = 1e-5
+# On the card the same steps run twice are not bitwise equal: cuDNN's
+# weight gradients and bilinear upsampling's backward add with atomics, and
+# DiffGrad turns a near-zero gradient's sign into a full lr. The phases run
+# the reference twice and allow this many times that floor where it is
+# above the gates.
+CARD_NOISE_FACTOR = 3.0
+# R5's bf16 recoloring step, remat against no remat: bf16 rounds each layer
+# to 8 bits, and the D update between the phases carries any reordering of
+# the weight gradients' sums (atomics) into the G phase's losses
+REMAT_BF16_LOSS_RTOL = 1e-2
+DP_BATCH, DP_RANKS = 8, 2  # 2 ranks on the one card, 4 images each
+# DP beyond D's first update. G's step-0 metrics come after it: DiffGrad's
+# sign-like first update turns rounding in a near-zero gradient into a full
+# lr, so they may move further than the JAX gate (measured on the card
+# 1.4e-5, on the CPU at 128 px capacity 8 4.0e-5). Over the 3 steps that
+# grows as the GAN's dynamics amplify it (measured 2.3e-2 in a metric and
+# 6.0e-4 in the parameters, where one process run twice moves 1.8e-3 and
+# 2.2e-4, and 2 CPU ranks at 128 px 1.3e-3 and 8.1e-5): those bounds catch
+# ranks out of step or a loss taken over the local batch (the Hellinger
+# loss's would be 41 % off), not rounding.
+DP_G_METRIC_RTOL = 5e-4
+DP_DRIFT_METRIC_RTOL = 0.25
+DP_DRIFT_PARAM_REL = 1e-2
+D_PHASE_METRICS = ("d_loss", "gp_loss", "q_loss")
+# the JAX package's 512 px recipe (its configuration only)
+RECIPE_512 = dict(image_size=512, network_capacity=16, latent_dim=512, style_depth=8,
+                  batch_size=8, gradient_accumulate_every=1, precision="bf16",
+                  opt_state_dtype="bf16")
+LIVE = ("S", "H", "G", "D")
+K1_KERNELS, K2_KERNELS = ("hist_partial_kernel", "hist_reduce_kernel"), ("hist_bwd_kernel",)
+
+
+def pinned_steps(cfg, flags, seed: int, rehisto: bool = False) -> list:
+    """One pinned input per (gp, pl) of ``flags`` at ``cfg``'s (global)
+    batch, made on the CPU from ``seed``: {"batch", "draws", "gp", "pl"},
+    as ``tools/dp_step.py`` takes them."""
+    from histogan_tpu_torch.train import rehisto_steps, steps
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator().manual_seed(seed)
+    a, b, s = cfg.gradient_accumulate_every, cfg.batch_size, cfg.image_size
+    out = []
+    for gp, pl in flags:
+        h = rng.random((2, a, b, 3, cfg.hist_bin, cfg.hist_bin), dtype=np.float32)
+        h /= h.sum(axis=(3, 4, 5), keepdims=True)
+        batch = {"d_images": rng.integers(0, 256, (a, b, s, s, 3), dtype=np.uint8),
+                 "d_hists": h[0], "g_hists": h[1]}
+        if rehisto:
+            batch["g_images"] = rng.integers(0, 256, (a, b, s, s, 3), dtype=np.uint8)
+        draws = (rehisto_steps.draw_step(gen, cfg, "cpu") if rehisto
+                 else steps.draw_step(gen, cfg, "cpu", pl))
+        out.append({"batch": {k: torch.from_numpy(np.ascontiguousarray(v))
+                              for k, v in batch.items()},
+                    "draws": draws, "gp": gp, "pl": pl})
+    return out
+
+
+def live_params(t) -> dict:
+    """The trained parameters, copied to the CPU (off the card's peaks)."""
+    return {k: v.detach().cpu() for k, v in t.reference_state_dict().items()
+            if k.split(".")[0] in LIVE + ("ED",)}
+
+
+def param_rel_err(got: dict, want: dict) -> float:
+    """||got - want|| / ||want|| over every tensor of ``want``, float64."""
+    num = den = 0.0
+    for k, w in want.items():
+        w, g = w.double(), got[k].to(w.device).double()
+        num += (g - w).square().sum().item()
+        den += w.square().sum().item()
+    return math.sqrt(num) / (math.sqrt(den) + 1e-30)
+
+
+def metric_gaps(got: list, want: list) -> float:
+    """The largest relative gap of a metric over the steps."""
+    return max(worst_metrics(got, want))
+
+
+def worst_metrics(got: list, want: list) -> list:
+    """Per step, the largest relative gap of a metric."""
+    return [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w) for g, w in zip(got, want)]
+
+
+def against_floor(what: str, gap: float, floor: float, gate: float) -> None:
+    """``gap`` within ``gate``, or within CARD_NOISE_FACTOR times the
+    reference's own run-to-run ``floor`` where that is larger."""
+    allowed = max(gate, CARD_NOISE_FACTOR * floor)
+    check(gap <= allowed, f"{what}: {gap:.3e} within max({gate}, {CARD_NOISE_FACTOR} x the "
+                          f"floor {floor:.3e})")
+
+
+def grad_gaps(what: str, got: dict, want: dict, again: dict) -> None:
+    """Each phase's applied gradients of ``got`` ({(step, phase): grads},
+    as remat_run's ``grads``) against ``want``'s, to REMAT_PARAM_REL or
+    CARD_NOISE_FACTOR times ``again``'s (the reference run twice) gap;
+    prints both."""
+    check(bool(want) and set(got) == set(want) == set(again),
+          f"{what}: gradients of {sorted(want)}")
+    for key in sorted(want):
+        gap, floor = (param_rel_err(r[key], want[key]) for r in (got, again))
+        print(f"{what}: the {key[0]} step's {key[1]} gradient, global-norm relative error "
+              f"{gap:.3e} (the reference twice: {floor:.3e})")
+        against_floor(f"{what}: the {key[0]} step's {key[1]} gradient", gap, floor,
+                      REMAT_PARAM_REL)
+
+
+def peak_text(row: dict) -> str:
+    return (f"peak {row['peak']} bytes (the phases' forward and backward {row['peak_phases']}, "
+            f"DiffGrad's updates {row['peak_updates']})")
+
+
+def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
+              rehisto: bool = False, timed_from: int = 0, grads_steps: int = 0) -> dict:
+    """A trainer (seed 0) with ``remat``, the pinned steps of ``flags`` on
+    the card: per step the metrics, the ms (host clock after a sync) and
+    the peak of torch.cuda.max_memory_allocated, also apart for the two
+    phases' forward and backward and for DiffGrad's two updates (its
+    reset before and after each update); the K1 and K2 launches of
+    the steps; the live parameters after step ``timed_from`` - 1 (all
+    steps when 0); and for each of the first ``grads_steps`` steps the
+    gradients each phase hands to DiffGrad (fp32, on the CPU, in
+    ``grads[(step, "D" or "G")]``; those steps' ms then include the copy).
+    With ``grads_steps``, G's phase first runs alone on step 0's input
+    against the seed's D, and its gradients (summed over the micro-
+    batches) are kept as ``grads[(0, "G alone")]`` and not applied: no D
+    update's rounding reaches them."""
+    from histogan_tpu_torch.train import rehisto_steps, steps
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
+    from histogan_tpu_torch.train.trainer import Trainer
+    from histogan_tpu_torch.tools.dp_step import to_device
+
+    cls = RecoloringTrainer if rehisto else Trainer
+    t = cls("remat", WORK / "remat" / "r", WORK / "remat" / "m", device=CARD, seed=0,
+            remat=remat, **kw)
+    t.init_GAN()
+    check(t.G.remat == remat and t.D.remat == remat, f"remat={remat} reaches G and D")
+    inputs = pinned_steps(t.cfg, flags, seed, rehisto)
+    rows, params, peaks, grads = [], None, [], {}
+    update = steps._update
+    if grads_steps:
+        s = inputs[0]
+        batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
+
+        def kept(opt, params, g, accum):
+            grads[(0, "G alone")] = {str(i): x.detach().float().cpu() for i, x in enumerate(g)}
+
+        pl_mean = getattr(t.state, "pl_mean", None)
+        steps._update = rehisto_steps._update = kept
+        try:
+            if rehisto:
+                rehisto_steps.g_phase(t.state, batch, draws, t.cfg, **REHISTO_HYPER)
+            else:
+                steps.g_phase(t.state, batch, draws, t.cfg, s["pl"])
+                t.state.pl_mean = pl_mean
+        finally:
+            steps._update = rehisto_steps._update = update
+    reset_counts(histogram_cuda)
+
+    def spied(*args):  # the peaks of each phase's forward and backward, and of its update
+        peaks.append(("phase", torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        update(*args)
+        peaks.append(("update", torch.cuda.max_memory_allocated()))
+        if len(rows) < grads_steps:  # _update averaged them in place: D's phase, then G's
+            phase = "D" if args[0] is t.state.opt_d else "G"
+            grads[(len(rows), phase)] = {str(i): g.detach().float().cpu()
+                                         for i, g in enumerate(args[2])}
+        torch.cuda.reset_peak_memory_stats()
+
+    steps._update = rehisto_steps._update = spied
+    for i, s in enumerate(inputs):
+        if i == timed_from and timed_from:
+            params = live_params(t)
+        batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        peaks.clear()
+        t0 = time.perf_counter()
+        if rehisto:
+            m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, s["gp"],
+                                         **REHISTO_HYPER)
+        else:
+            m = steps.train_step(t.state, batch, draws, t.cfg, s["gp"], s["pl"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        phase = max(v for k, v in peaks if k == "phase")
+        upd = max(v for k, v in peaks if k == "update")
+        rows.append({"ms": ms, "peak": max(phase, upd, torch.cuda.max_memory_allocated()),
+                     "peak_phases": phase, "peak_updates": upd,
+                     "metrics": {k: v.item() for k, v in m.items()}})
+        check(all(math.isfinite(v) for v in rows[-1]["metrics"].values()),
+              f"remat={remat}: finite losses {rows[-1]['metrics']}")
+    steps._update = rehisto_steps._update = update
+    counts = {"histogram_fwd": histogram_cuda.launches,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    out = {"rows": rows, "counts": counts, "params": params or live_params(t), "grads": grads}
+    del t
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_remat(histogram_cuda, smi) -> dict:
+    """RM: remat at the main path's width and batch (256 px, capacity 16,
+    latent 512, batch 16, fp32): a plain step and a GP+PL step, each from
+    the seed's weights (a step after an update would carry the card's
+    run-to-run rounding through DiffGrad's sign-like first update), with
+    remat and without (twice, for the floor), on the same pinned inputs:
+    the metrics to REMAT_METRIC_RTOL, the parameters after each step and
+    each phase's gradients (as handed to DiffGrad; G's also from its phase
+    alone against the seed's D, which D's sign-like update cannot reach)
+    to REMAT_PARAM_REL (or CARD_NOISE_FACTOR times the floor), the K1 and
+    K2 launches equal; the
+    GP+PL step's trainer then takes one more plain and GP+PL step each
+    way, timed, with their peak memory and the peak before DiffGrad's
+    updates.
+    R5: two bf16 recoloring GP steps at the CLI's defaults (batch 2 x
+    accumulation 8) with remat and without (twice, for the floor), the
+    second timed: step 0's metrics to REMAT_BF16_LOSS_RTOL, its D and G
+    gradients as RM's. R512: the
+    512 px recipe (capacity 16, batch 8, bf16 with bf16 DiffGrad state),
+    plain and GP+PL twice each way, the second pair timed.
+    Returns {remat: {kernel: launches}} of the 256 px runs."""
+    kw = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1)
+    runs = {}
+    for r in (False, True, "again"):
+        one = remat_run(histogram_cuda, r is True, kw, [(False, False)], seed=31, grads_steps=1)
+        two = remat_run(histogram_cuda, r is True, kw, [(True, True), (False, False), (True, True)],
+                        seed=32, timed_from=1, grads_steps=1)
+        runs[r] = {"metrics": [one["rows"][0]["metrics"], two["rows"][0]["metrics"]],
+                   "params": {"plain": one["params"], "GP+PL": two["params"]},
+                   "grads": {(step, phase): g for step, run in (("plain", one), ("GP+PL", two))
+                             for (_, phase), g in run["grads"].items()},
+                   "counts": {k: one["counts"][k] + two["counts"][k] for k in one["counts"]},
+                   "timed": two["rows"][1:]}
+    plain, checked, again = runs[False], runs[True], runs["again"]
+    gap = metric_gaps(checked["metrics"], plain["metrics"])
+    floor = metric_gaps(again["metrics"], plain["metrics"])
+    print(f"RM: remat against none, a plain and a GP+PL step from the seed's weights: metric "
+          f"gaps per step {worst_metrics(checked['metrics'], plain['metrics'])} (no remat "
+          f"twice: {worst_metrics(again['metrics'], plain['metrics'])})")
+    against_floor("RM: remat's metrics", gap, floor, REMAT_METRIC_RTOL)
+    for step, want in plain["params"].items():
+        rel, rel_floor = (param_rel_err(r["params"][step], want) for r in (checked, again))
+        print(f"RM: the parameters after the {step} step, global-norm relative error {rel:.3e} "
+              f"(no remat twice: {rel_floor:.3e})")
+        against_floor(f"RM: remat's parameters after the {step} step", rel, rel_floor,
+                      REMAT_PARAM_REL)
+    grad_gaps("RM: remat", checked["grads"], plain["grads"], again["grads"])
+    check(plain["counts"] == checked["counts"] and plain["counts"]["histogram_fwd"] == 4
+          and plain["counts"]["histogram_bwd"] == 4,
+          f"RM: one K1 and one K2 a step with and without remat: {plain['counts']}, "
+          f"{checked['counts']}")
+    for label, r in (("without remat", plain), ("with remat", checked)):
+        p, g = r["timed"]
+        print(f"RM: 256 px capacity 16 batch 16 fp32 {label}: plain step {p['ms']:.2f} ms, "
+              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)}; K1/K2 launches "
+              f"{r['counts']} in 4 steps on {smi}")
+    del runs, plain, again
+    torch.cuda.empty_cache()
+
+    re_kw = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, **REHISTO_BF16)
+    re_runs = {r: remat_run(histogram_cuda, r is True, re_kw, [(True, False)] * 2, seed=32,
+                            rehisto=True, grads_steps=1) for r in (False, True, "again")}
+    re_gap = metric_gaps([re_runs[True]["rows"][0]["metrics"]],
+                         [re_runs[False]["rows"][0]["metrics"]])
+    check(re_gap <= REMAT_BF16_LOSS_RTOL,
+          f"R5: bf16 recoloring step with remat within {REMAT_BF16_LOSS_RTOL} ({re_gap:.3e})")
+    check(re_runs[True]["counts"] == re_runs[False]["counts"],
+          f"R5: K1/K2 launches alike {re_runs[True]['counts']}, {re_runs[False]['counts']}")
+    grad_gaps("R5: remat", *({("GP", phase): g for (_, phase), g in re_runs[r]["grads"].items()}
+                             for r in (True, False, "again")))
+    for r, label in ((False, "without remat"), (True, "with remat")):
+        row = re_runs[r]["rows"][1]
+        print(f"R5: reHistoGAN bf16 GP step at batch 2 x accumulation {REHISTO_ACCUM} {label}: "
+              f"{row['ms']:.2f} ms (the second), {peak_text(row)}; launches "
+              f"{re_runs[r]['counts']} in 2 steps on {smi}")
+    print(f"R5: worst metric gap remat against none {re_gap:.3e} (gate {REMAT_BF16_LOSS_RTOL})")
+    del re_runs
+    torch.cuda.empty_cache()
+
+    for r in (False, True):
+        run = remat_run(histogram_cuda, r, RECIPE_512, [(False, False), (True, True)] * 2,
+                        seed=33)
+        p, g = run["rows"][2:]
+        print(f"R512: 512 px capacity 16 batch 8 bf16 (bf16 DiffGrad state) "
+              f"{'with' if r else 'without'} remat: plain step {p['ms']:.2f} ms, "
+              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)} on {smi}")
+        del run
+        torch.cuda.empty_cache()
+    return {"remat": checked["counts"]}
+
+
+def phase_data_parallel(histogram_cuda, smi) -> dict:
+    """DP: two ranks on the one card over gloo (NCCL puts one rank on a
+    GPU), a global batch of DP_BATCH at 256 px, capacity 16: three pinned
+    steps (GP+PL, plain, GP) from the seed's weights through
+    ``tools/dp_step.py``, against the same steps in this one process (run
+    twice, for the floor): step 0's D losses to REMAT_METRIC_RTOL and D's
+    step-0 gradient to REMAT_PARAM_REL (before any update), step 0's other
+    metrics to DP_G_METRIC_RTOL, the 3 steps to the drift bounds; the two
+    ranks' parameters bitwise equal, K1 and K2 on every rank. Then
+    ``torchrun --nproc_per_node 1`` over NCCL through the real CLI for 2
+    steps (capacity 4, so that its step-0 checkpoint stays small). Returns
+    {path: {kernel: launches}}."""
+    from histogan_tpu_torch.tools import dp_step
+    from histogan_tpu_torch.utils.config import HistoGANConfig
+
+    work = WORK / "dp"
+    work.mkdir(parents=True, exist_ok=True)
+    kw = dict(name="dp", results_dir=str(work / "r"), models_dir=str(work / "m"), seed=0,
+              **FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1)
+    cfg = HistoGANConfig(**FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1)
+    flags = [(True, True), (False, False), (True, False)]
+    case = {"kind": "histogan", "trainer": kw, "state": None, "grads_step": 0,
+            "steps": pinned_steps(cfg, flags, seed=41)}
+    torch.save([case], work / "cases.pt")
+    t0 = time.perf_counter()
+    ranks = dp_step.spawn(work / "cases.pt", work / "out", DP_RANKS, "gloo", "cuda:0",
+                          timeout=600)
+    spawn_s = time.perf_counter() - t0
+    two = [r[0] for r in ranks]
+    one, again = (dp_step.run_cases([case], CARD)[0] for _ in range(2))
+    check(all(torch.equal(two[0]["state"][k], two[1]["state"][k]) for k in two[0]["state"]),
+          "DP: the two ranks' parameters bitwise equal after 3 steps")
+    check(two[0]["metrics"] == two[1]["metrics"], "DP: every rank reads the same metrics")
+    d_gap = max(abs(two[0]["metrics"][0][k] - w) / max(abs(w), 1e-12)
+                for k, w in one["metrics"][0].items() if k in D_PHASE_METRICS)
+    g_gap = worst_metrics(two[0]["metrics"][:1], one["metrics"][:1])[0]
+    d_grads = [k for k in one["grads"] if k.startswith("D.")]
+    d_rel = param_rel_err(two[0]["grads"], {k: one["grads"][k] for k in d_grads})
+    want = {k: v for k, v in one["state"].items() if k.split(".")[0] in LIVE}
+    gap, floor = (metric_gaps(r["metrics"], one["metrics"]) for r in (two[0], again))
+    rel, rel_floor = (param_rel_err(r["state"], want) for r in (two[0], again))
+    print(f"DP: 2 ranks against one process: step 0's D losses {d_gap:.3e} (gate "
+          f"{REMAT_METRIC_RTOL}), D's step-0 gradient global-norm relative error {d_rel:.3e} "
+          f"(gate {REMAT_PARAM_REL}), step 0's metrics {g_gap:.3e} (gate {DP_G_METRIC_RTOL}); "
+          f"metric gaps per step {worst_metrics(two[0]['metrics'], one['metrics'])} (one "
+          f"process twice: {worst_metrics(again['metrics'], one['metrics'])}), parameters' "
+          f"global-norm relative error {rel:.3e} (one process twice: {rel_floor:.3e}; gates "
+          f"{DP_DRIFT_METRIC_RTOL} and {DP_DRIFT_PARAM_REL})")
+    check(d_gap <= REMAT_METRIC_RTOL and d_rel <= REMAT_PARAM_REL and g_gap <= DP_G_METRIC_RTOL,
+          "DP: step 0 within the gates")
+    check(gap <= DP_DRIFT_METRIC_RTOL and rel <= DP_DRIFT_PARAM_REL,
+          "DP: 3 steps within the drift bounds")
+    for r in (*two, one, again):
+        check(r["launches"] == {"histogram_fwd": 3, "histogram_bwd": 3},
+              f"DP: one K1 and one K2 a step on every rank: {r['launches']}")
+    print(f"DP: 2 gloo ranks on cuda:0 at global batch {DP_BATCH} (256 px, capacity 16, fp32), "
+          f"steps GP+PL/plain/GP: rank 0 {' / '.join(f'{x:.2f}' for x in two[0]['ms'])} ms, "
+          f"rank 1 {' / '.join(f'{x:.2f}' for x in two[1]['ms'])} ms; one process at batch "
+          f"{DP_BATCH} {' / '.join(f'{x:.2f}' for x in one['ms'])} ms; the spawn "
+          f"{spawn_s:.2f} s; ranks bitwise equal; launches per rank {two[0]['launches']} on "
+          f"{smi}")
+    launches = {"dp_rank0": two[0]["launches"], "dp_rank1": two[1]["launches"]}
+    del ranks, two, one, again, want
+    torch.cuda.empty_cache()
+
+    from histogan_tpu_torch.tools.dp_step import free_port
+
+    cli = WORK / "dp_cli"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
+           "--master_addr", "localhost", "--master_port", str(free_port()),
+           "-m", "histogan_tpu_torch.cli.histogan", "--data", str(WORK / "images"),
+           "--name", "dp", "--new", "True", "--results_dir", str(cli / "results"),
+           "--models_dir", str(cli / "models"), "--image_size", "256",
+           "--network_capacity", "4", "--batch_size", str(DP_BATCH),
+           "--gradient_accumulate_every", "1", "--num_train_steps", "2", "--num_devices", "1"]
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT),
+                                                                   os.environ.get("PYTHONPATH")])),
+           "NCCL_DEBUG": "INFO"}
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    check(proc.returncode == 0, f"DP: torchrun CLI exit {proc.returncode}:\n{log[-4000:]}")
+    check("NCCL INFO" in log, "DP: the CLI's process group runs over NCCL (NCCL_DEBUG lines)")
+    made = sorted(p.name for p in (cli / "models" / "dp").iterdir())
+    check("model_0.pt" in made and (cli / "results" / "dp" / "metrics.jsonl").is_file(),
+          f"DP: the CLI under torchrun wrote its checkpoint and log ({made})")
+    print(f"DP: torchrun --nproc_per_node 1 -m histogan_tpu_torch.cli.histogan --num_devices 1 "
+          f"(NCCL; 256 px, capacity 4, batch {DP_BATCH}, 2 steps) exit 0 in {secs:.2f} s; "
+          f"wrote {made} on {smi}")
+    return launches
+
+
+def phase_debug(smi) -> None:
+    """DB: ``checkify_step`` around one plain 256 px step at batch 16 (fp32):
+    it passes, and the mode saw the backward's ops, which the autograd
+    engine runs on a thread of its own on a GPU; its seconds beside the
+    step's without it. With one of D's weights NaN the same step raises a
+    FloatCheckError that names an op."""
+    from histogan_tpu_torch.train import steps
+    from histogan_tpu_torch.train.trainer import Trainer
+    from histogan_tpu_torch.utils.debug import FloatCheckError, checkify_step
+    from histogan_tpu_torch.tools.dp_step import to_device
+
+    t = Trainer("debug", WORK / "debug" / "r", WORK / "debug" / "m", device=CARD, seed=0,
+                **FLAGSHIP, batch_size=16, gradient_accumulate_every=1)
+    t.init_GAN()
+    s = pinned_steps(t.cfg, [(False, False)], seed=51)[0]
+    batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
+    step = checkify_step(steps.train_step)
+    secs = []
+    for fn in (steps.train_step, steps.train_step, step):  # the first warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = fn(t.state, batch, draws, t.cfg, False, False)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        check(all(math.isfinite(v.item()) for v in m.values()), "DB: a clean step")
+    ops = step.checks.ops
+    backward = {k: v for k, v in ops.items() if "backward" in k}
+    check(ops["convolution_backward"] > 0,
+          f"DB: the mode sees the backward's ops on the card ({sorted(backward)})")
+    with torch.no_grad():
+        t.state.D.blocks[0].conv_res.weight[0, 0, 0, 0] = float("nan")
+    try:
+        step(t.state, batch, draws, t.cfg, False, False)
+        raise RuntimeError("check failed: DB: a NaN weight in D raises")
+    except FloatCheckError as e:
+        err = e
+    check(err.op.startswith("aten."), f"DB: the error names an op ({err})")
+    print(f"DB: checkify_step on a plain 256 px batch 16 step: passes, {sum(ops.values())} ops "
+          f"checked ({sum(backward.values())} of the backward's, e.g. convolution_backward "
+          f"{ops['convolution_backward']}), {secs[2]:.2f} s against {secs[1]:.2f} s without; "
+          f"with D.blocks.0.conv_res.weight[0, 0, 0, 0] = NaN: FloatCheckError '{err}' on {smi}")
+    del t
+    torch.cuda.empty_cache()
+
+
+def phase_profiler(histogram_cuda, smi) -> dict:
+    """PF: ``Trainer.enable_profiling(1, 2)`` on a 3-step run (256 px,
+    capacity 16, batch 16, fp32, phase 8's images; step 0's checkpoint not
+    written) writes a Chrome trace of steps 1-2 holding K1's and K2's
+    kernels. Returns {kernel: launches} of the 3 steps."""
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    t = Trainer("prof", WORK / "prof_hook" / "r", WORK / "prof_hook" / "m", device=CARD,
+                seed=0, **FLAGSHIP, batch_size=16, gradient_accumulate_every=1)
+    t.init_GAN()
+    t.save = lambda num: None
+    t.set_data_src(str(WORK / "images"))
+    reset_counts(histogram_cuda)
+    pool = histogram_cuda.launches
+    t.enable_profiling(1, 2)
+    t0 = time.perf_counter()
+    try:
+        for _ in range(3):
+            t.train()
+    finally:
+        t.close()
+    secs = time.perf_counter() - t0
+    counts = {"histogram_fwd": histogram_cuda.launches - pool,
+              "histogram_bwd": histogram_cuda.bwd_launches}
+    path = t.profiler_hook.path
+    check(path is not None and path.is_file(), f"PF: a trace was written ({path})")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    found = {k: sum(k in n for n in kernels) for k in K1_KERNELS + K2_KERNELS}
+    check(all(v >= 2 for v in found.values()),
+          f"PF: K1's and K2's kernels in the trace of 2 steps: {found}")
+    print(f"PF: enable_profiling(1, 2) over 3 steps ({secs:.2f} s): {path.name}, "
+          f"{path.stat().st_size} bytes, {len(kernels)} kernels, of them {found}; K1/K2 "
+          f"launches {counts} in the 3 steps on {smi}")
+    del t
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
     parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
@@ -2891,6 +3394,10 @@ def main(argv=None) -> int:
                               REHISTO_BF16, rate_re)
     timed("P2", phase_projection_timed, smi, profile)
     counts_projection = timed("P3", phase_projection_clis, histogram_cuda, smi)
+    counts_remat = timed("RM", phase_remat, histogram_cuda, smi)
+    counts_dp = timed("DP", phase_data_parallel, histogram_cuda, smi)
+    timed("DB", phase_debug, smi)
+    counts_profiler = timed("PF", phase_profiler, histogram_cuda, smi)
     timed("P1", phase_projection_card_vs_cpu, smi)
     timed("9", phase_card_vs_cpu)
     timed("D1c", card_vs_cpu_step, True, True, True, D_OPTIONS_CMP)
@@ -2932,7 +3439,11 @@ def main(argv=None) -> int:
                               **{k: c["histogram_fwd"] for k, c in counts_loaders.items()},
                               "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"],
-                              **counts_projection},
+                              **counts_projection,
+                              "training_remat": counts_remat["remat"]["histogram_fwd"],
+                              **{f"training_{k}": c["histogram_fwd"]
+                                 for k, c in counts_dp.items()},
+                              "training_profiled": counts_profiler["histogram_fwd"]},
          "max_abs_err": fwd_err, **main_row(fwd_rows), "hmma": hmma["histogram_fwd"],
          "shapes": fwd_rows},
         {"name": "histogram_bwd", "route": "cuda",
@@ -2950,7 +3461,11 @@ def main(argv=None) -> int:
                               "rehisto_training_d_options": counts_d_re["histogram_bwd"],
                               **{k: c["histogram_bwd"] for k, c in counts_loaders.items()},
                               "create_hist_data": pools["create_hist_data"]["histogram_bwd"],
-                              "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"]},
+                              "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"],
+                              "training_remat": counts_remat["remat"]["histogram_bwd"],
+                              **{f"training_{k}": c["histogram_bwd"]
+                                 for k, c in counts_dp.items()},
+                              "training_profiled": counts_profiler["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
          "shapes": bwd_rows},
     ]}))

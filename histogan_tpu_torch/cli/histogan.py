@@ -8,6 +8,8 @@ npy / image / directory targets with tile doubling, ``--load_pt`` and
 
     histogan-torch --data ./dataset --name m --new True
     histogan-torch --generate True --target_hist t.jpg --load_pt m.pt
+    torchrun --nproc_per_node 2 -m histogan_tpu_torch.cli.histogan --data ./dataset \
+        --num_devices 2     # data parallel over two GPUs (batch_size is the global batch)
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from histogan_tpu_torch import parallel
 
 
 def str2bool(v) -> bool:
@@ -87,7 +91,7 @@ def train_from_folder(
     alpha=2, aug_prob=0.0, dataset_aug_prob=0.0, aug_types=None, seed=42,
     load_pt=None, export_pt=None, precision="fp32", sync_every=1, device_dataset="auto",
     calculate_fid_every=None, opt_state_dtype=None, ema_dtype=None, remat=False,
-    device="cuda",
+    num_devices=None, param_sharding="replicated", device="cuda",
 ):
     """Train from a folder of images (or, with ``export_pt``, write the
     loaded model as a reference-layout .pt and stop)."""
@@ -106,7 +110,8 @@ def train_from_folder(
         precision=precision, sync_every=sync_every, device_dataset=device_dataset,
         calculate_fid_every=calculate_fid_every,
         opt_state_dtype=opt_state_dtype, ema_dtype=ema_dtype, remat=remat,
-        num_workers=num_workers, device=device,
+        num_workers=num_workers, num_devices=num_devices, param_sharding=param_sharding,
+        device=device,
     )
     if not new:
         model.init_GAN()
@@ -143,7 +148,7 @@ def train_from_folder(
                     tries += 1
                     if tries >= 3:
                         raise
-            if i % 50 == 0:
+            if i % 50 == 0 and parallel.is_main():
                 print(f"{name}<{data}>: step {model.steps} ({i + 1}/{total})")
                 model.print_log()
     finally:
@@ -264,7 +269,17 @@ def get_args(argv=None):
     add("--device_dataset", default="auto", choices=("auto", "true", "false"),
         help="Park the decoded dataset + hist pool in device memory and gather "
              "batches on the device (auto: when eligible).")
-    add("--remat", type=str2bool, default=False)
+    add("--remat", type=str2bool, default=False,
+        help="Rematerialize model blocks on the backward pass "
+             "(identical numerics; trades recompute for activation "
+             "memory — enables larger batches / 512px batch sizes).")
+    add("--param_sharding", default="replicated",
+        choices=("replicated", "fsdp"),
+        help="State layout over the device mesh: 'replicated' (DP) or "
+             "'fsdp' (ZeRO-3-style — params/optimizer/EMA sharded over "
+             "the data axis; the multi-chip path for models whose state "
+             "outgrows one chip, e.g. 512px capacity-16). 'fsdp' is not "
+             "ported yet and raises NotImplementedError.")
     add("--calculate_fid_every", type=int, default=None,
         help="Score FID every N steps into results/<name>/fid_scores.txt (0 or "
              "unset: off); pretrained InceptionV3 weights from INCEPTION_WEIGHTS, "
@@ -273,6 +288,9 @@ def get_args(argv=None):
     add("--fq_dict_size", type=int, default=256)
     add("--attn_layers", nargs="*", type=int, default=[])
     add("--gpu", type=int, default=0)  # accepted for compat; use --device
+    add("--num_devices", type=int, default=None,
+        help="Data-parallel ranks, one process per GPU, launched by "
+             "`torchrun --nproc_per_node N` (default: the launched world size).")
     add("--hist_bin", type=int, default=64)
     add("--hist_insz", type=int, default=150)
     add("--hist_method", default="inverse-quadratic")
@@ -291,6 +309,8 @@ def get_args(argv=None):
 
 def main(argv=None):
     args = get_args(argv)
+    # under torchrun, before any CUDA work: NCCL for --device cuda, gloo for cpu
+    parallel.maybe_initialize_distributed(device=args.device)
     precision = args.precision or ("bf16" if args.fp16 else "fp32")
     if args.generate:
         return generate_from_folder(
@@ -323,7 +343,8 @@ def main(argv=None):
         device_dataset={"true": True, "false": False}.get(args.device_dataset, "auto"),
         calculate_fid_every=args.calculate_fid_every,
         opt_state_dtype=args.opt_state_dtype, ema_dtype=args.ema_dtype,
-        remat=args.remat, device=args.device,
+        remat=args.remat, num_devices=args.num_devices, param_sharding=args.param_sharding,
+        device=args.device,
     )
 
 

@@ -30,6 +30,7 @@ from pathlib import Path
 
 import numpy as np
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.cli.histogan import image_hist, str2bool
 
 IMAGE_EXTS = (".jpg", ".png", ".jpeg")
@@ -249,7 +250,7 @@ def train_from_folder(
                     tries += 1
                     if tries >= 3:
                         raise
-            if i % 50 == 0:
+            if i % 50 == 0 and parallel.is_main():
                 print(f"{name}<{data}>: step {model.steps} ({i + 1}/{total})")
                 model.print_log()
     finally:
@@ -364,6 +365,8 @@ def extract_faces(input_image: str, faces_dir: str = "./temp-faces/") -> str:
 
 def main(argv=None):
     args = get_args(argv)
+    # under torchrun, before any CUDA work: NCCL for --device cuda, gloo for cpu
+    parallel.maybe_initialize_distributed(device=args.device)
     input_image = args.input_image
     if args.generate and args.face_extraction:
         if input_image is None:

@@ -25,9 +25,13 @@ separable bilinear (``crop_resize_u8``) within 1 uint8 level of PIL's
 crop and resize. For a non-square source the crop window is then limited
 to the cached center square, a slightly narrower content distribution.
 
-One device only: ``device_dataset_mode`` returns ``None`` (stream) or
-``"replicated"``. The JAX module's ``"sharded"`` placement spreads the
-cache over a mesh of several devices; it comes with multi-GPU training.
+Placement: ``device_dataset_mode`` returns ``None`` (stream) or
+``"replicated"``: every rank of a data-parallel run holds the whole cache.
+Every rank draws the global batch's indices from the same seed and
+gathers only its slice (``shard``), as the JAX trainer's source draws the
+global batch on every process; the streaming loader on rank r is seeded
+seed + r and loads the local batch. The JAX module's ``"sharded"``
+placement, which spreads the cache over the devices, is not ported yet.
 
 The streaming path's batches reach the device through ``take_batch`` and
 ``stage_next_batch``: on a GPU the loader's thread hands out pinned
@@ -39,10 +43,12 @@ copy that reads it has completed, so no buffer is rewritten in flight.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from histogan_tpu_torch import parallel
 
 # The JAX package's budget for "auto" (images + pool), kept so that "auto"
 # makes the same decision for the same folder.
@@ -91,8 +97,8 @@ def should_use_device_dataset(flag, dataset, pool, dataset_aug_prob: float = 0.0
 
 def device_dataset_mode(flag, dataset, pool, dataset_aug_prob: float = 0.0) -> Optional[str]:
     """The cache's placement: ``None`` (stream from the host) or
-    ``"replicated"`` (the whole cache on the one device). The JAX package's
-    ``"sharded"`` needs a mesh of several devices (multi-GPU, not ported)."""
+    ``"replicated"`` (the whole cache on each rank's device). The JAX
+    package's ``"sharded"`` placement is not ported yet."""
     return "replicated" if should_use_device_dataset(flag, dataset, pool,
                                                      dataset_aug_prob) else None
 
@@ -172,15 +178,18 @@ def make_source(flag, dataset, pool, batch_size: int, accum: int, seed: int,
     ``DeviceDataSource`` where ``device_dataset_mode`` places the cache on
     the device (with the dataset's ``aug_prob``, which only an explicit
     True lets through), else the streaming ``TrainLoader``, whose batches
-    are pinned for a GPU; both seeded ``seed``."""
+    are pinned for a GPU. ``batch_size`` is the global batch: the device
+    source draws it from ``seed`` and gathers this rank's slice, the
+    streaming loader on rank r loads the local batch from seed + r."""
     from histogan_tpu_torch.data.dataset import TrainLoader
 
     device = torch.device(device)
+    local, shard, shards = parallel.local_shard_info(batch_size)
     if device_dataset_mode(flag, dataset, pool, dataset.aug_prob):
         return DeviceDataSource(dataset._cache, pool.pool, batch_size, accum, seed=seed,
                                 self_hist=self_hist, include_g_images=include_g_images,
-                                aug_prob=dataset.aug_prob, device=device)
-    return TrainLoader(dataset, pool, batch_size, accum, seed=seed,
+                                aug_prob=dataset.aug_prob, device=device, shard=(shard, shards))
+    return TrainLoader(dataset, pool, local, accum, seed=seed + shard,
                        prefetch=max(2, num_workers or 0), self_hist=self_hist,
                        include_g_images=include_g_images, pin_memory=device.type == "cuda")
 
@@ -238,16 +247,22 @@ class DeviceDataSource:
     the (N, 3, h, h) fp32 histogram pool; both go to the device once.
     ``self_hist`` takes each image's own histogram as its target,
     ``include_g_images`` gives the G phase images of its own (reHistoGAN),
-    and ``aug_prob`` > 0 crops on the device (module docstring).
+    and ``aug_prob`` > 0 crops on the device (module docstring). With
+    ``shard`` (index, count) the draws are the global ``batch_size``'s and
+    the batches hold slice ``index`` of ``count`` along the batch axis.
     """
 
     def __init__(self, images: np.ndarray, pool: np.ndarray, batch_size: int, accum: int,
                  seed: int = 0, self_hist: bool = False, include_g_images: bool = False,
-                 aug_prob: float = 0.0, device="cuda"):
+                 aug_prob: float = 0.0, device="cuda", shard: Tuple[int, int] = (0, 1)):
         if images.dtype != np.uint8:
             raise ValueError(f"expects the decoded uint8 cache, got {images.dtype}")
+        if batch_size % shard[1]:
+            raise ValueError(f"global batch {batch_size} is not divisible by {shard[1]} shards")
         self.n = images.shape[0]
         self.batch_size, self.accum = batch_size, accum
+        self.shard = shard
+        self.local_batch = batch_size // shard[1]
         self.self_hist, self.include_g_images = self_hist, include_g_images
         self.aug_prob = float(aug_prob)
         self.device = torch.device(device)
@@ -321,20 +336,35 @@ class DeviceDataSource:
             off += size
         return d
 
+    def _local(self, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Each draw's items of this shard's slice of every micro-batch."""
+        index, count = self.shard
+        if count == 1:
+            return draws
+        lo, hi, a, b = index * self.local_batch, (index + 1) * self.local_batch, \
+            self.accum, self.batch_size
+        out = {}
+        for k, v in draws.items():
+            if k.endswith("pair"):  # (2, items)
+                out[k] = v.reshape(2, a, b)[:, :, lo:hi].reshape(2, -1)
+            else:  # (items, ...)
+                out[k] = v.reshape(a, b, *v.shape[1:])[:, lo:hi].reshape(-1, *v.shape[1:])
+        return out
+
     def _gather_images(self, idx, boxes=None) -> torch.Tensor:
         rows = self._images.index_select(0, idx)
         if boxes is not None:
             rows = crop_resize_u8(rows, boxes)
-        return rows.reshape(self.accum, self.batch_size, *self._images.shape[1:])
+        return rows.reshape(self.accum, self.local_batch, *self._images.shape[1:])
 
     def _interp_hists(self, pair, r) -> torch.Tensor:
         r = r[:, None, None, None]
         h = r * self._pool.index_select(0, pair[0]) \
             + (1.0 - r) * self._pool.index_select(0, pair[1])
-        return h.reshape(self.accum, self.batch_size, *self._pool.shape[1:])
+        return h.reshape(self.accum, self.local_batch, *self._pool.shape[1:])
 
     def _self_hists(self, idx) -> torch.Tensor:
-        return self._pool.index_select(0, idx).reshape(self.accum, self.batch_size,
+        return self._pool.index_select(0, idx).reshape(self.accum, self.local_batch,
                                                        *self._pool.shape[1:])
 
     def __next__(self) -> Dict[str, torch.Tensor]:
@@ -344,8 +374,9 @@ class DeviceDataSource:
                   .astype(np.float32) if self._float_layout else np.zeros((0,), np.float32))
         # two small copies from pageable memory: CUDA stages them at
         # once, so the arrays may go; the host does not wait for the device
-        draws = self._unpack(torch.from_numpy(ints).to(self.device, non_blocking=True),
-                             torch.from_numpy(floats).to(self.device, non_blocking=True))
+        draws = self._local(self._unpack(
+            torch.from_numpy(ints).to(self.device, non_blocking=True),
+            torch.from_numpy(floats).to(self.device, non_blocking=True)))
         batch = {"d_images": self._gather_images(draws["d_idx"], draws.get("d_crop"))}
         if self.self_hist:
             batch["d_hists"] = self._self_hists(draws["d_idx"])

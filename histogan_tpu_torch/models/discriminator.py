@@ -17,6 +17,7 @@ from torch import nn
 from histogan_tpu_torch.models.attention import RezeroResidual
 from histogan_tpu_torch.models.blocks import DiscriminatorBlock
 from histogan_tpu_torch.models.layers import TorchLinear
+from histogan_tpu_torch.models.remat import call_block
 from histogan_tpu_torch.models.vq import PermuteToFrom, VectorQuantize
 
 # Why bf16 and a vector-quantize layer with a D block after it are refused
@@ -53,8 +54,11 @@ def refuse_bf16_vq(precision: str, image_size: int, fq_layers: Sequence[int]) ->
 class Discriminator(nn.Module):
     def __init__(self, image_size: int, network_capacity: int = 16,
                  fq_layers: Sequence[int] = (), fq_dict_size: int = 256,
-                 attn_layers: Sequence[int] = (), transparent: bool = False):
+                 attn_layers: Sequence[int] = (), transparent: bool = False,
+                 remat: bool = False):
         super().__init__()
+        # checkpoint the conv blocks (models/remat.py); attention and VQ never
+        self.remat = remat
         pairs = discriminator_filters(image_size, network_capacity, transparent)
         self.blocks = nn.ModuleList(
             DiscriminatorBlock(in_chan, out_chan, downsample=ind != len(pairs) - 1)
@@ -84,7 +88,7 @@ class Discriminator(nn.Module):
         last = len(self.blocks) - 1
         for ind, (block, attn, vq) in enumerate(
                 zip(self.blocks, self.attn_blocks, self.quantize_blocks)):
-            x = block(x)
+            x = call_block(block, self.remat, x)
             if attn is not None:
                 x = attn(x)
             if vq is not None:

@@ -15,6 +15,7 @@ import torch
 from torch import nn
 
 from histogan_tpu_torch.models.blocks import GeneratorBlock
+from histogan_tpu_torch.models.remat import call_block
 
 
 def generator_filters(image_size: int, network_capacity: int) -> List[Tuple[int, int]]:
@@ -29,9 +30,10 @@ def generator_filters(image_size: int, network_capacity: int) -> List[Tuple[int,
 
 class Generator(nn.Module):
     def __init__(self, image_size: int, latent_dim: int = 512, network_capacity: int = 16,
-                 transparent: bool = False):
+                 transparent: bool = False, remat: bool = False):
         super().__init__()
         self.image_size = image_size
+        self.remat = remat  # checkpoint each block (models/remat.py); no parameter
         self.num_layers = int(log2(image_size) - 1)
         self.initial_block = nn.Parameter(torch.empty(4 * network_capacity, 4, 4))
         self.reset_parameters()
@@ -86,5 +88,8 @@ class Generator(nn.Module):
             if block_noises is not None and block_noises[ind] is not None:
                 n1, n2 = block_noises[ind]
                 overrides.update(noise1=n1, noise2=n2)
-            x, rgb = block(x, rgb, all_styles[:, ind], input_noise, **overrides)
+            if overrides:  # the projection tools' path is never checkpointed
+                x, rgb = block(x, rgb, all_styles[:, ind], input_noise, **overrides)
+            else:
+                x, rgb = call_block(block, self.remat, x, rgb, all_styles[:, ind], input_noise)
         return rgb

@@ -28,6 +28,7 @@ from torch import nn
 from histogan_tpu_torch.models.blocks import Conv2DMod, GeneratorBlock
 from histogan_tpu_torch.models.generator import generator_filters
 from histogan_tpu_torch.models.layers import InstanceNorm, TorchConv, TorchLinear
+from histogan_tpu_torch.models.remat import call_block
 from histogan_tpu_torch.models.vectorizers import HistVectorizer
 from histogan_tpu_torch.ops.resize import upsample2x
 
@@ -37,8 +38,9 @@ class RecoloringGAN(nn.Module):
     and ``blocks.1``."""
 
     def __init__(self, image_size: int, latent_dim: int = 512, network_capacity: int = 16,
-                 transparent: bool = False):
+                 transparent: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat  # checkpoint each block (models/remat.py)
         pairs = generator_filters(image_size, network_capacity)[-2:]
         self.blocks = nn.ModuleList([
             GeneratorBlock(latent_dim, pairs[0][0], pairs[0][1], upsample=True,
@@ -53,8 +55,8 @@ class RecoloringGAN(nn.Module):
         """x: (B, 8c, S/4, S/4); hists: (B, latent) style of both blocks;
         input_noise: (B, S, S, 1) NHWC. Returns (B, 3|4, S, S)."""
         rgb = None  # reference quirk: the passed rgb is ignored (rehistoGAN.py:479)
-        x, rgb = self.blocks[0](x, rgb, hists, input_noise, latent1)
-        x, rgb = self.blocks[1](x, rgb, hists, input_noise, latent2)
+        x, rgb = call_block(self.blocks[0], self.remat, x, rgb, hists, input_noise, latent1)
+        x, rgb = call_block(self.blocks[1], self.remat, x, rgb, hists, input_noise, latent2)
         return rgb
 
 
@@ -125,8 +127,9 @@ class RecoloringEncoderDecoder(nn.Module):
 
     def __init__(self, image_size: int, network_capacity: int = 16, hist: int = 64,
                  latent_dim: int = 512, style_depth: int = 8, skip_conn_to_GAN: bool = False,
-                 internal_hist: bool = False):
+                 internal_hist: bool = False, remat: bool = False):
         super().__init__()
+        self.remat = remat  # checkpoint the encoder and decoder blocks (models/remat.py)
         self.skip_conn_to_GAN = skip_conn_to_GAN
         self.internal_hist = internal_hist
         cap = network_capacity
@@ -157,13 +160,13 @@ class RecoloringEncoderDecoder(nn.Module):
         x = self.mapping(x)
         downs, ups = [], []
         for block in self.encoder_blocks:
-            x, up = block(x)
+            x, up = call_block(block, self.remat, x)
             downs.append(x)
             ups.append(up)
 
         rgb = None
         for block, prev_latent in zip(self.decoder_blocks, downs[::-1]):
-            x, rgb = block(x, rgb, prev_latent, hists)
+            x, rgb = call_block(block, self.remat, x, rgb, prev_latent, hists)
         x = self.decoder_mapping(x)
         if not self.skip_conn_to_GAN:
             return x, rgb

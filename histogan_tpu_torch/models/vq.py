@@ -8,7 +8,9 @@ parameters only). A forward picks each row's nearest code by JAX's
 negative squared distance and argmax, from the codebook as it stands;
 with ``train_stats`` it then moves the codebook by the EMA update, in
 place and under ``torch.no_grad``. Mixed dtypes are promoted as JAX
-promotes them, so a bf16 input gives an fp32 output and loss.
+promotes them, so a bf16 input gives an fp32 output and loss. Over
+several data-parallel ranks the update's counts and sums are the global
+batch's (summed across the ranks), so every rank keeps JAX's codebook.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from histogan_tpu_torch import parallel
 
 
 class VectorQuantize(nn.Module):
@@ -58,8 +62,11 @@ class VectorQuantize(nn.Module):
             quantized = embed.t()[idx].reshape(x.shape)
             if train_stats:
                 onehot = F.one_hot(idx, self.n_embed).to(f.dtype)
-                new_cluster = self.decay * self.cluster_size + (1 - self.decay) * onehot.sum(0)
-                new_avg = self.decay * self.embed_avg + (1 - self.decay) * (f.t() @ onehot)
+                # the global batch's statistics over the data-parallel ranks
+                counts, sums = onehot.sum(0), f.t() @ onehot
+                parallel.sum_across_ranks_([counts, sums])
+                new_cluster = self.decay * self.cluster_size + (1 - self.decay) * counts
+                new_avg = self.decay * self.embed_avg + (1 - self.decay) * sums
                 n = new_cluster.sum()
                 smoothed = (new_cluster + self.eps) / (n + self.n_embed * self.eps) * n
                 self.cluster_size.copy_(new_cluster)

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.ops import filters
 
 SCALE = 1.0 / np.sqrt(2.0)  # reference histoGAN/histoGAN.py:54
@@ -23,9 +24,12 @@ def hellinger_histogram_loss(target_hist: torch.Tensor, generated_hist: torch.Te
 
     The reference takes the 2-norm over the WHOLE batch tensor and then
     divides by the batch size (histoGAN/histoGAN.py:957-960), not a
-    per-sample mean; kept."""
+    per-sample mean; kept. Under data parallelism the norm and B are the
+    global batch's over the ranks (``parallel.global_sum``, the identity
+    in one process)."""
     diff = torch.sqrt(target_hist) - torch.sqrt(generated_hist)
-    return alpha * SCALE * torch.sqrt(torch.sum(torch.square(diff))) / target_hist.shape[0]
+    sq = parallel.global_sum(torch.sum(torch.square(diff)))
+    return alpha * SCALE * torch.sqrt(sq) / (target_hist.shape[0] * parallel.world_size())
 
 
 def hinge_divergence(real_logits: torch.Tensor, fake_logits: torch.Tensor) -> torch.Tensor:
@@ -108,12 +112,14 @@ def variance_loss(hist_batch: torch.Tensor, input_hist_of_hist: torch.Tensor,
     The reference feeds the histogram TENSOR back through a histogram
     block as an image (rehistoGAN.py:1020); the caller passes that
     hist-of-hist as ``input_hist_of_hist``. ``torch.std`` is unbiased
-    (correction 1), over H and then over W, leaving (B, C)."""
+    (correction 1), over H and then over W, leaving (B, C). Under data
+    parallelism the sum and the mean are the global batch's over the
+    ranks (the identity in one process)."""
     def std2(x):
         return torch.std(torch.std(x, dim=2, correction=1), dim=2, correction=1)
 
     blur_in = filters.gaussian_op(input_images, gauss_kernel)
     blur_gen = filters.gaussian_op(generated_images, gauss_kernel)
-    color_term = torch.sum(torch.abs(hist_batch - input_hist_of_hist))
-    structure_term = torch.mean(torch.abs(std2(blur_in) - std2(blur_gen)))
+    color_term = parallel.global_sum(torch.sum(torch.abs(hist_batch - input_hist_of_hist)))
+    structure_term = parallel.global_mean(torch.abs(std2(blur_in) - std2(blur_gen)))
     return -1.0 * (beta / 10.0) * color_term * structure_term

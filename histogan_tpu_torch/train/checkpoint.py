@@ -12,7 +12,9 @@ trusts over the command-line flags on load (histoGAN/histoGAN.py:806-825,
      "step": int}
 
 so a resume continues the same run (the reference loses the optimizer
-state). It is written to a temporary file and renamed into place.
+state). It is written to a temporary file and renamed into place. In a
+data-parallel run the trainers save on rank 0 and every rank waits at a
+barrier until the file is in place; every rank loads it.
 """
 
 from __future__ import annotations

@@ -31,6 +31,10 @@ recolor runs on them with the image, the histogram and the noise cast to
 bf16; D's logits, the losses and the histograms are fp32, so K1 and K2
 see fp32 input (``generated32``). On the CPU the D phase runs under
 ``steps.cpu_bf16_double_backward_guard``.
+
+Over several ranks the step reduces as ``train/steps.py`` does: the
+Hellinger and variance losses read the global batch's sums, each phase's
+gradients and the metrics are averaged across the ranks.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.ops import filters, losses
 from histogan_tpu_torch.ops.histogram import histogram_feature
 from histogan_tpu_torch.train.state import ReHistoGANState
@@ -68,11 +73,22 @@ class ReHistoDraws:
 
 
 def draw_step(gen: torch.Generator, cfg, device) -> ReHistoDraws:
+    """The step's noise for the global batch ``cfg.batch_size``; over
+    several ranks this rank's slice of it (``local_draws``)."""
     shape = (cfg.batch_size, cfg.image_size, cfg.image_size, 1)
     accum = cfg.gradient_accumulate_every
     d = [torch.rand(shape, generator=gen, device=device) for _ in range(accum)]
     g = [torch.rand(shape, generator=gen, device=device) for _ in range(accum)]
-    return ReHistoDraws(d, g)
+    return local_draws(ReHistoDraws(d, g))
+
+
+def local_draws(draws: ReHistoDraws) -> ReHistoDraws:
+    """This rank's slice of the global batch's noise; the draws themselves
+    at one rank."""
+    if parallel.world_size() == 1:
+        return draws
+    return ReHistoDraws([parallel.local_slice(x) for x in draws.d],
+                        [parallel.local_slice(x) for x in draws.g])
 
 
 def recolor_forward(models: RecolorModels, image_batch: torch.Tensor,
@@ -133,8 +149,7 @@ def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.T
     if cfg.variance_loss:
         # the reference's hist-of-hist (rehistoGAN.py:1020)
         hist_of_hist = _hist(F.relu(hist_batch).permute(0, 2, 3, 1), cfg)
-        var = losses.variance_loss(hist_batch, hist_of_hist, image_batch, generated32, gauss,
-                                   beta)
+        var = losses.variance_loss(hist_batch, hist_of_hist, image_batch, generated32, gauss, beta)
         loss = loss + var
     return loss, adv, hist, rec, var
 
@@ -198,9 +213,11 @@ def train_step(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: Re
     """One D phase, then one G phase against the updated D. ``batch``:
     {'d_images', 'g_images': (A, B, S, S, C) uint8 or float NHWC,
     'd_hists', 'g_hists': (A, B, 3, h, h)}, on the state's device.
-    Returns the step's metrics as 0-d tensors (no host sync)."""
+    Over several ranks ``batch`` and ``draws`` are the rank's slices.
+    Returns the step's metrics as 0-d tensors (no host sync), averaged
+    across the ranks."""
     with cpu_bf16_double_backward_guard(batch["d_hists"].device, compute_dtype(cfg)):
         metrics = d_phase(state, batch, draws, cfg, apply_gp)
     metrics.update(g_phase(state, batch, draws, cfg, alpha, beta, gamma))
     state.step += 1
-    return metrics
+    return parallel.mean_metrics_across_ranks(metrics)

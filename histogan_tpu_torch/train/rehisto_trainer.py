@@ -29,8 +29,12 @@ G phase) when it can, else the streaming loader feeds the step;
 ``sync_every`` N > 1 reads the metrics, logs and checks for NaN every N
 steps and on save steps only.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-``remat``, and more than one device or FSDP.
+Remat and data parallel as in ``train/trainer.py``: ``remat=True``
+checkpoints the encoder-decoder's and the head's blocks, ``num_devices``
+trains over the ``torchrun`` ranks with ``batch_size`` the global batch,
+rank 0 alone writes checkpoints, grids and ``metrics.jsonl`` (every rank
+recolors in ``evaluate``: its noise comes from the step's generator), and
+``param_sharding='fsdp'`` is refused with NotImplementedError.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.data import device_source
 from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.rehisto import RecoloringEncoderDecoder, RecoloringGAN
@@ -55,8 +60,7 @@ from histogan_tpu_torch.train.rehisto_steps import RecolorModels, draw_step, rec
     train_step
 from histogan_tpu_torch.train.state import ReHistoGANState
 from histogan_tpu_torch.train.steps import cast_models, compute_dtype
-from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice, \
-    _refuse_deferred
+from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice, refuse_fsdp
 from histogan_tpu_torch.utils.config import ReHistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
@@ -82,14 +86,11 @@ class RecoloringTrainer:
                  param_sharding="replicated", opt_state_dtype=None,
                  remat=False, num_workers=None, device="cuda"):
         _check_choice("precision", precision, ("fp32", "bf16"))
-        _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
-        _refuse_deferred(
-            remat=bool(remat),
-            num_devices=(num_devices or 1) > 1,
-            param_sharding=param_sharding == "fsdp",
-        )
+        refuse_fsdp(param_sharding)
         refuse_bf16_vq(precision, image_size, fq_layers)
+        self.num_devices = parallel.resolve_num_devices(num_devices)
+        parallel.local_shard_info(batch_size)  # the ranks must divide the batch
         self.cfg = ReHistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
@@ -104,12 +105,13 @@ class RecoloringTrainer:
             fixed_gan_weights=fixed_gan_weights, initialize_gan=initialize_gan,
             change_hyperparameters=change_hyperparameters,
             change_hyperparameters_after=change_hyperparameters_after, precision=precision,
+            remat=bool(remat),
         )
         self.name = name
         self.results_dir = Path(results_dir)
         (self.results_dir / name).mkdir(parents=True, exist_ok=True)
         self.store = CheckpointStore(models_dir, name)
-        self.device = setup_runtime(device)
+        self.device = setup_runtime(parallel.train_device(device))
         self.seed = int(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.opt_state_dtype = DTYPES[opt_state_dtype]
@@ -137,12 +139,12 @@ class RecoloringTrainer:
         modules = [
             RecoloringEncoderDecoder(cfg.image_size, cfg.network_capacity, cfg.hist_bin,
                                      cfg.latent_dim, cfg.style_depth, cfg.skip_conn_to_GAN,
-                                     cfg.internal_hist),
+                                     cfg.internal_hist, remat=cfg.remat),
             HistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
             RecoloringGAN(cfg.image_size, cfg.latent_dim, cfg.network_capacity,
-                          cfg.transparent),
+                          cfg.transparent, remat=cfg.remat),
             Discriminator(cfg.image_size, cfg.network_capacity, cfg.fq_layers,
-                          cfg.fq_dict_size, cfg.attn_layers, cfg.transparent),
+                          cfg.fq_dict_size, cfg.attn_layers, cfg.transparent, remat=cfg.remat),
         ]
         live = {k: reset_parameters_(m, init_gen).to(self.device)
                 for k, m in zip(LIVE, modules)}
@@ -213,8 +215,8 @@ class RecoloringTrainer:
         """Images and histogram pool from ``folder``; with ``sampling`` the
         targets are pool interpolations, else each image's own histogram.
         The batches come from the ``DeviceDataSource`` or the streaming
-        loader as ``device_dataset`` resolves (both seeded 11, as in the
-        JAX package)."""
+        loader as ``device_dataset`` resolves (seeded 11 as in the JAX
+        package; the streaming loader on data-parallel rank r 11 + r)."""
         from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset
 
         cfg = self.cfg
@@ -343,6 +345,8 @@ class RecoloringTrainer:
             img_bt_sz = len(image_batch)
         # widened to fp32 before the clip's output is written or post-processed
         generated = self.recolor(image_batch, hist_batch).float().cpu().numpy()
+        if not parallel.is_main():  # every rank recolors (the same noise); rank 0 writes
+            return generated
         grouped = double_hist or triple_hist
         num_rows = img_bt_sz if grouped else int(np.ceil(np.sqrt(len(hist_batch))))
         ext = "jpg" if not cfg.transparent else "png"
@@ -389,12 +393,16 @@ class RecoloringTrainer:
 
     # ------------------------------------------------------ persistence
     def save(self, num: int) -> None:
+        """Rank 0 writes checkpoint ``num`` and the config; every rank
+        leaves once it is on disk."""
         s = self.state
-        self.store.save({
-            "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
-            "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(), "step": s.step,
-        }, num)
-        self.cfg.write_config(self.store.config_path)
+        if parallel.is_main():
+            self.store.save({
+                "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
+                "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(), "step": s.step,
+            }, num)
+            self.cfg.write_config(self.store.config_path)
+        parallel.barrier()
 
     def load(self, num: int = -1) -> int:
         """Trust the persisted architecture (``.config.json``), build the
@@ -419,9 +427,13 @@ class RecoloringTrainer:
         return 0
 
     def clear(self) -> None:
-        self.store.clear()
-        shutil.rmtree(self.results_dir / self.name, ignore_errors=True)
-        (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
+        """Rank 0 deletes the run's checkpoints and results; every rank
+        leaves once they are gone."""
+        if parallel.is_main():
+            self.store.clear()
+            shutil.rmtree(self.results_dir / self.name, ignore_errors=True)
+            (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
+        parallel.barrier()
 
     # ---------------------------------------------------------- logging
     def print_log(self) -> None:

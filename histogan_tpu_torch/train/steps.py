@@ -37,6 +37,15 @@ inputs; D's logits, the losses, the histogram, the gradient penalty's
 image gradient and the path length's statistics are fp32. The draws stay
 fp32 and are cast where JAX draws or casts them. With fp32 the casts are
 no-ops and the modules run themselves.
+
+Over several ranks (``parallel/``) the step is the global batch's, as the
+JAX step is under GSPMD: every rank draws the global batch's draws from
+the same generators and keeps its slice (``local_draws``), its batch is
+its slice, the losses that are not per-sample means read global sums
+(the Hellinger norm, the path length's std), each phase's gradients are
+averaged across the ranks before DiffGrad, the path length's mean before
+``pl_mean`` moves, and the returned metrics too, so that every rank sees
+the same NaN verdict. At one rank each of these is the identity.
 """
 
 from __future__ import annotations
@@ -49,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.ops import losses
 from histogan_tpu_torch.ops.diffaugment import AugDraws, aug_wrapper, draw_aug
 from histogan_tpu_torch.ops.histogram import histogram_feature
@@ -156,14 +166,16 @@ def draw_step(gen: torch.Generator, cfg, device, apply_pl: bool,
     the AugWrapper's gates and flips come from ``coins``, a CPU generator
     (``gen`` itself when it is one), and its other draws after the rest,
     so that they leave the draws of a run without augmentation as they
-    are; with ``aug_prob`` 0 nothing more is drawn."""
+    are; with ``aug_prob`` 0 nothing more is drawn. ``cfg.batch_size`` is
+    the global batch: over several ranks this rank keeps its slice
+    (``local_draws``)."""
     accum, batch = cfg.gradient_accumulate_every, cfg.batch_size
     d = [draw_gen(gen, batch, cfg, device) for _ in range(accum)]
     g = [draw_gen(gen, batch, cfg, device) for _ in range(accum)]
     pl = ([torch.randn((batch, cfg.num_layers - 2, cfg.latent_dim), generator=gen, device=device)
            for _ in range(accum)] if apply_pl else None)
     if cfg.aug_prob <= 0.0:
-        return StepDraws(d, g, pl)
+        return local_draws(StepDraws(d, g, pl))
     if coins is None:
         if gen.device.type != "cpu":
             raise ValueError("aug_prob > 0 on a device generator needs a CPU generator for "
@@ -176,7 +188,28 @@ def draw_step(gen: torch.Generator, cfg, device, apply_pl: bool,
 
     d_aug = [(aug(), aug()) for _ in range(accum)]
     g_aug = [aug() for _ in range(accum)]
-    return StepDraws(d, g, pl, d_aug, g_aug)
+    return local_draws(StepDraws(d, g, pl, d_aug, g_aug))
+
+
+def local_draws(draws: StepDraws) -> StepDraws:
+    """This rank's slice of the global batch's draws: every per-sample
+    draw; the cutoff and the AugWrapper's gate and flip are the batch's.
+    The draws themselves at one rank."""
+    if parallel.world_size() == 1:
+        return draws
+    cut = parallel.local_slice
+
+    def gen(d: GenDraws) -> GenDraws:
+        return GenDraws(cut(d.z1), cut(d.z2), d.cutoff, cut(d.noise))
+
+    def aug(a: AugDraws) -> AugDraws:
+        return dataclasses.replace(a, values=[[cut(v) for v in vs] for vs in a.values])
+
+    return StepDraws(
+        [gen(d) for d in draws.d], [gen(d) for d in draws.g],
+        None if draws.pl is None else [cut(p) for p in draws.pl],
+        None if draws.d_aug is None else [(aug(f), aug(r)) for f, r in draws.d_aug],
+        None if draws.g_aug is None else [aug(a) for a in draws.g_aug])
 
 
 def sample_w_rows(S: nn.Module, draws: GenDraws, num_rows: int) -> torch.Tensor:
@@ -276,9 +309,9 @@ def g_loss(models: Models, hist_batch: torch.Tensor, draws: GenDraws,
         # path-length regularisation (histoGAN/histoGAN.py:965-975) in fp32
         # with the JAX package's safe std: var + 1e-12 keeps the sqrt's
         # gradient finite when a w coordinate is equal across the batch (as
-        # it can be under bf16)
+        # it can be under bf16); the variance is the global batch's
         w32 = w_styles.float()
-        sigma = torch.sqrt(torch.var(w32, dim=0, keepdim=True, correction=1) + 1e-12)
+        sigma = torch.sqrt(parallel.batch_var(w32) + 1e-12)
         std = 0.1 / (sigma + EPS)
         w2 = w32 + pl_noise / (std + EPS)
         pl_images = models.G(w2.to(dtype), h_rows, draws.noise.to(dtype))
@@ -296,9 +329,11 @@ def _accumulate(total, grads):
 
 
 def _update(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads, accum: int) -> None:
-    """One optimizer step on the mean of the summed micro-batch gradients."""
+    """One optimizer step on the mean of the summed micro-batch gradients,
+    averaged across the ranks."""
     if accum > 1:
         torch._foreach_div_(grads, float(accum))
+    parallel.all_reduce_mean_(grads)
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -348,7 +383,7 @@ def g_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
         hists.append(hist.detach())
     _update(state.opt_g, params, grads, accum)
     if apply_pl:  # the last micro-batch's mean path length, as the JAX scan carries it
-        avg_pl = avg_pl.detach()
+        avg_pl = parallel.mean_across_ranks(avg_pl.detach())
         state.pl_mean = torch.where(torch.isnan(avg_pl), state.pl_mean,
                                     state.pl_mean * 0.99 + 0.01 * avg_pl)
     return {"g_loss": torch.stack(advs).mean(), "h_loss": torch.stack(hists).mean(),
@@ -360,11 +395,13 @@ def train_step(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: Step
     """One D phase, one G phase against the updated D, then the moving
     averages. ``batch``: {'d_images': (A, B, S, S, C) uint8 or float NHWC,
     'd_hists', 'g_hists': (A, B, 3, h, h)}, on the state's device.
-    Returns the step's metrics as 0-d tensors (no host sync)."""
+    Over several ranks ``batch`` and ``draws`` are the rank's slices.
+    Returns the step's metrics as 0-d tensors (no host sync), averaged
+    across the ranks."""
     with cpu_bf16_double_backward_guard(state.pl_mean.device, compute_dtype(cfg)):
         metrics = d_phase(state, batch, draws, cfg, apply_gp)
     metrics.update(g_phase(state, batch, draws, cfg, apply_pl))
     if apply_ema:
         state.update_ema()
     state.step += 1
-    return metrics
+    return parallel.mean_metrics_across_ranks(metrics)

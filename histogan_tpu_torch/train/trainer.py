@@ -41,8 +41,24 @@ InceptionV3's pool3 features (``metrics/``), and appends
 come from generators of its own, so it leaves the training draws as they
 are.
 
-Not ported yet, and refused with NotImplementedError when asked for:
-``remat``.
+Remat (``remat=True``) checkpoints the model blocks at the JAX package's
+boundaries (``models/remat.py``): the same step in less memory.
+
+Data parallel (``num_devices``, under ``torchrun``; ``parallel/``): each
+rank is one process on its own GPU (``cuda:{LOCAL_RANK}`` for a plain
+"cuda") holding the whole state, ``batch_size`` is the global batch and a
+rank trains on its slice (``train/steps.py``). No weight is broadcast:
+every rank draws the same weights from the same CPU generator. Only rank
+0 writes checkpoints, sample grids, ``metrics.jsonl`` and
+``fid_scores.txt`` and runs FID; the others wait at a barrier after it.
+Every rank samples in ``evaluate`` (its draws come from the training
+generator, which must move alike on every rank). ``param_sharding='fsdp'``
+(sharded state) is refused with NotImplementedError: the port takes
+gradients with ``torch.autograd.grad``, so its FSDP must be hand-written,
+and it is not yet.
+
+``enable_profiling(start, count)`` writes a torch.profiler Chrome trace of
+steps [start, start + count) (``utils/logging.py::ProfilerHook``).
 """
 
 from __future__ import annotations
@@ -58,6 +74,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from histogan_tpu_torch import parallel
 from histogan_tpu_torch.data import device_source
 from histogan_tpu_torch.models.discriminator import Discriminator, refuse_bf16_vq
 from histogan_tpu_torch.models.generator import Generator
@@ -70,7 +87,7 @@ from histogan_tpu_torch.train.steps import draw_step, train_step
 from histogan_tpu_torch.utils.config import HistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
-from histogan_tpu_torch.utils.logging import MetricsLogger
+from histogan_tpu_torch.utils.logging import MetricsLogger, ProfilerHook
 from histogan_tpu_torch.utils.platform import setup_runtime
 
 
@@ -94,10 +111,16 @@ def _check_choice(name: str, value, allowed) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
-def _refuse_deferred(**given) -> None:
-    for name, asked in given.items():
-        if asked:
-            raise NotImplementedError(f"{name}: not ported to the PyTorch package yet")
+def refuse_fsdp(param_sharding: str) -> None:
+    """ValueError for an unknown layout, NotImplementedError for 'fsdp'."""
+    _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
+    if param_sharding == "fsdp":
+        raise NotImplementedError(
+            "param_sharding='fsdp': sharded state is not ported to the PyTorch package yet. "
+            "The port takes gradients with torch.autograd.grad (the gradient penalty is a "
+            "double backward), so FSDP2's reduce-scatter hooks on .grad would never fire and "
+            "its FSDP must be hand-written (parallel/fsdp.py, with the device dataset's "
+            "'sharded' placement). Use param_sharding='replicated' (data parallel)")
 
 
 class Trainer:
@@ -112,12 +135,15 @@ class Trainer:
                  latent_dim=512, style_depth=8, seed=42, precision="fp32",
                  sync_every=1, calculate_fid_every=None, fid_num_samples=256,
                  fid_extractor=None, device_dataset="auto", opt_state_dtype=None,
-                 ema_dtype=None, remat=False, num_workers=None, device="cuda"):
+                 ema_dtype=None, remat=False, num_workers=None, num_devices=None,
+                 param_sharding="replicated", device="cuda"):
         _check_choice("precision", precision, ("fp32", "bf16"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
         _check_choice("ema_dtype", ema_dtype, (None, "fp32", "bf16"))
-        _refuse_deferred(remat=bool(remat))
+        refuse_fsdp(param_sharding)
         refuse_bf16_vq(precision, image_size, fq_layers)
+        self.num_devices = parallel.resolve_num_devices(num_devices)
+        parallel.local_shard_info(batch_size)  # the ranks must divide the batch
         self.cfg = HistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
@@ -129,14 +155,14 @@ class Trainer:
             learning_rate=lr, mixed_prob=mixed_prob, aug_prob=aug_prob,
             aug_types=tuple(aug_types or ("translation", "cutout")),
             dataset_aug_prob=dataset_aug_prob, save_every=save_every,
-            trunc_psi=trunc_psi, precision=precision,
+            trunc_psi=trunc_psi, precision=precision, remat=bool(remat),
         )
         self.name = name
         self.results_dir = Path(results_dir)
         (self.results_dir / name).mkdir(parents=True, exist_ok=True)
         self.store = CheckpointStore(models_dir, name)
         self.config_path = self.store.config_path
-        self.device = setup_runtime(device)
+        self.device = setup_runtime(parallel.train_device(device))
         self.seed = int(seed)
         self.gen = torch.Generator(device=self.device).manual_seed(self.seed)
         self.coin_gen = torch.Generator().manual_seed(self.seed + COIN_SEED_OFFSET)
@@ -164,6 +190,15 @@ class Trainer:
         self.pl_mean = 0.0
         self.metrics_logger = MetricsLogger(
             results_dir, name, every=50, imgs_per_step=batch_size * gradient_accumulate_every)
+        self.profiler_hook: Optional[ProfilerHook] = None  # enable_profiling
+
+    def enable_profiling(self, start_step: int, count: int = 5,
+                         trace_dir: Optional[str] = None) -> None:
+        """Trace steps [start_step, start_step + count) with torch.profiler
+        into ``trace_dir`` (default results/<name>/traces)."""
+        self.profiler_hook = ProfilerHook(
+            trace_dir or str(self.results_dir / self.name / "traces"), start_step, count)
+        self.profiler_hook.step(self.steps - 1)  # starts now if the next step is start_step
 
     # ------------------------------------------------------------ setup
     def init_GAN(self) -> None:
@@ -177,11 +212,12 @@ class Trainer:
         H = reset_parameters_(HistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
                               init_gen)
         G = reset_parameters_(
-            Generator(cfg.image_size, cfg.latent_dim, cfg.network_capacity, cfg.transparent),
+            Generator(cfg.image_size, cfg.latent_dim, cfg.network_capacity, cfg.transparent,
+                      remat=cfg.remat),
             init_gen)
         D = reset_parameters_(
             Discriminator(cfg.image_size, cfg.network_capacity, cfg.fq_layers,
-                          cfg.fq_dict_size, cfg.attn_layers, cfg.transparent),
+                          cfg.fq_dict_size, cfg.attn_layers, cfg.transparent, remat=cfg.remat),
             init_gen)
         live = {k: m.to(self.device) for k, m in zip(LIVE, (S, H, G, D))}
         ema = {e: copy.deepcopy(live[k]).to(self.ema_dtype).eval().requires_grad_(False)
@@ -244,8 +280,9 @@ class Trainer:
     def set_data_src(self, folder: str) -> None:
         """Images and histogram pool from ``folder``, and the batch source:
         the ``DeviceDataSource`` when ``device_dataset`` resolves to it, else
-        the streaming ``TrainLoader`` (both seeded 7, as in the JAX
-        package)."""
+        the streaming ``TrainLoader`` (seeded 7 as in the JAX package; the
+        streaming loader on data-parallel rank r 7 + r, for its own local
+        batches)."""
         from histogan_tpu_torch.data.dataset import HistogramPool, ImageFolderDataset
 
         cfg = self.cfg
@@ -255,7 +292,7 @@ class Trainer:
                                   cfg.hist_method, cfg.hist_resizing, cfg.hist_sigma,
                                   cfg.transparent, cache_dir=str(self.store.dir),
                                   device=self.device)
-        self.close()
+        self._close_loader()
         self.loader = device_source.make_source(
             self.device_dataset, self.dataset, self.pool, cfg.batch_size,
             cfg.gradient_accumulate_every, seed=7, num_workers=self.num_workers,
@@ -264,7 +301,12 @@ class Trainer:
         self._eval_rng = np.random.default_rng(1234)
 
     def close(self) -> None:
-        """Stop the loader's prefetch thread."""
+        """Stop the loader's prefetch thread, and write a trace still open."""
+        if self.profiler_hook is not None:
+            self.profiler_hook.close()
+        self._close_loader()
+
+    def _close_loader(self) -> None:
         self._staged = None
         if self.loader is not None:
             self.loader.close()
@@ -298,6 +340,8 @@ class Trainer:
         self._staged = device_source.stage_next_batch(self.loader, self.device)
         if apply_reset:
             self.state.reset_ema()
+        if self.profiler_hook is not None:
+            self.profiler_hook.step(steps)
 
         checkpoint_num = steps // cfg.save_every
         m = None
@@ -323,11 +367,13 @@ class Trainer:
             self.evaluate(steps // 1000)
         # 0 disables it, as None does (the CLI's flag is an int)
         if self.calculate_fid_every and steps % self.calculate_fid_every == 0:
-            fid = self.calculate_fid()
-            prov = self.fid_provenance
-            print(f"FID @ step {steps}: {fid:.4f} [{prov}]")
-            with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
-                f.write(f"{steps},{fid:.4f},{prov}\n")
+            if parallel.is_main():  # FID's draws are its own: the others need not follow
+                fid = self.calculate_fid()
+                prov = self.fid_provenance
+                print(f"FID @ step {steps}: {fid:.4f} [{prov}]")
+                with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
+                    f.write(f"{steps},{fid:.4f},{prov}\n")
+            parallel.barrier()
 
         self.steps += 1
         self.av = None
@@ -373,6 +419,8 @@ class Trainer:
         images = self.generate_truncated(
             self._ema_params(), hist_batch, latents, n, trunc_psi=cfg.trunc_psi
         ).cpu().numpy()
+        if not parallel.is_main():  # every rank samples (the same draws); rank 0 writes
+            return images
         if num is not None:
             save_image_grid(images, self.results_dir / self.name / f"{num}-ema.{ext}",
                             nrow=num_rows)
@@ -515,13 +563,17 @@ class Trainer:
         self.init_GAN()
 
     def save(self, num: int) -> None:
+        """Rank 0 writes checkpoint ``num`` and the config; every rank
+        leaves once it is on disk."""
         s = self.state
-        self.store.save({
-            "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
-            "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(),
-            "pl_mean": float(s.pl_mean), "step": s.step,
-        }, num)
-        self.write_config()
+        if parallel.is_main():
+            self.store.save({
+                "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
+                "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(),
+                "pl_mean": float(s.pl_mean), "step": s.step,
+            }, num)
+            self.write_config()
+        parallel.barrier()
 
     def load(self, num: int = -1) -> None:
         self.load_config()
@@ -542,9 +594,13 @@ class Trainer:
         s.step = int(payload["step"])
 
     def clear(self) -> None:
-        self.store.clear()
-        shutil.rmtree(self.results_dir / self.name, ignore_errors=True)
-        (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
+        """Rank 0 deletes the run's checkpoints and results; every rank
+        leaves once they are gone."""
+        if parallel.is_main():
+            self.store.clear()
+            shutil.rmtree(self.results_dir / self.name, ignore_errors=True)
+            (self.results_dir / self.name).mkdir(parents=True, exist_ok=True)
+        parallel.barrier()
 
     # ---------------------------------------------------------- logging
     def print_log(self) -> None:

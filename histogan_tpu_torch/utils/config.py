@@ -42,6 +42,11 @@ class HistoGANConfig:
     # the train step's compute dtype: "fp32", or "bf16" on fp32 masters
     # (train/steps.py compute_dtype); sampling is fp32 at either
     precision: str = "fp32"
+    # recompute each model block's activations in the backward pass
+    # (torch.utils.checkpoint at the JAX package's block boundaries,
+    # models/remat.py): the same values and parameters, less activation
+    # memory for more compute
+    remat: bool = False
 
     @property
     def num_layers(self) -> int:

@@ -182,3 +182,104 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         histogram_cuda._launch_bwd(packed, g[:, :2], INV_SIGMA2)
     with pytest.raises(ValueError):
         histogram_cuda._launch_bwd(packed, g.cpu(), INV_SIGMA2)
+
+
+# ------------------------------------- remat, data parallel, the debug step, the profiler
+# (the gates of chip_smoke.py's RM and DP phases, the JAX package's)
+STEP_METRIC_RTOL = 5e-5
+STEP_PARAM_REL = 1e-5
+TINY = dict(image_size=32, network_capacity=4, latent_dim=32, style_depth=2, hist_bin=64,
+            batch_size=2, gradient_accumulate_every=1, seed=0)
+
+
+def _trainer(tmp_path, **kw):
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    t = Trainer("c", str(tmp_path / "r"), str(tmp_path / "m"), device="cuda", **{**TINY, **kw})
+    t.init_GAN()
+    return t
+
+
+def _inputs(t, pl=True):
+    from histogan_tpu_torch.tools.dp_step import to_device
+    from histogan_tpu_torch.train import steps
+
+    rng = np.random.default_rng(0)
+    b, s = t.cfg.batch_size, t.cfg.image_size
+    h = rng.random((2, 1, b, 3, 64, 64), dtype=np.float32)
+    h /= h.sum(axis=(3, 4, 5), keepdims=True)
+    batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, b, s, s, 3), np.uint8)),
+             "d_hists": torch.from_numpy(h[0]), "g_hists": torch.from_numpy(h[1])}
+    draws = steps.draw_step(torch.Generator().manual_seed(1), t.cfg, "cpu", pl)
+    return to_device(batch, t.device), to_device(draws, t.device)
+
+
+def _rel(a, b):
+    num = sum((a[k].double() - b[k].double()).square().sum().item() for k in b)
+    return (num / sum(b[k].double().square().sum().item() for k in b)) ** 0.5
+
+
+def test_remat_step_on_the_card_matches_and_launches_alike(dev, tmp_path):
+    from histogan_tpu_torch.train import steps
+
+    out = {}
+    for remat in (False, True):
+        t = _trainer(tmp_path / str(remat), remat=remat)
+        histogram_cuda.launches = histogram_cuda.bwd_launches = 0
+        m = steps.train_step(t.state, *_inputs(t), t.cfg, True, True)
+        out[remat] = ({k: v.item() for k, v in m.items()},
+                      (histogram_cuda.launches, histogram_cuda.bwd_launches),
+                      t.reference_state_dict())
+    (m0, c0, p0), (m1, c1, p1) = out[False], out[True]
+    assert c0 == c1 == (1, 1)
+    assert all(abs(m1[k] - m0[k]) <= STEP_METRIC_RTOL * abs(m0[k]) + 1e-7 for k in m0)
+    assert _rel(p1, p0) <= STEP_PARAM_REL
+
+
+def test_checkify_sees_the_backward_on_the_card(dev, tmp_path):
+    from histogan_tpu_torch.train import steps
+    from histogan_tpu_torch.utils.debug import checkify_step
+
+    t = _trainer(tmp_path)
+    step = checkify_step(steps.train_step)
+    step(t.state, *_inputs(t), t.cfg, True, True)
+    assert step.checks.ops["convolution_backward"] > 0
+
+
+def test_profiler_trace_holds_the_kernels(dev, tmp_path):
+    import json
+
+    from histogan_tpu_torch.train import steps
+    from histogan_tpu_torch.utils.logging import ProfilerHook
+
+    t = _trainer(tmp_path)
+    hook = ProfilerHook(tmp_path / "tr", start=0, count=1)
+    hook.step(-1)
+    steps.train_step(t.state, *_inputs(t), t.cfg, True, True)
+    hook.step(0)
+    names = [e["name"] for e in json.loads(hook.path.read_text())["traceEvents"]
+             if e.get("cat") == "kernel"]
+    for kernel in ("hist_partial_kernel", "hist_reduce_kernel", "hist_bwd_kernel"):
+        assert any(kernel in n for n in names), kernel
+
+
+def test_two_gloo_ranks_on_one_card(dev, tmp_path):
+    from histogan_tpu_torch.tools import dp_step
+    from histogan_tpu_torch.train import steps
+
+    kw = dict(name="dp", results_dir=str(tmp_path / "r"), models_dir=str(tmp_path / "m"),
+              **{**TINY, "batch_size": 4})
+    t = _trainer(tmp_path / "cfg", batch_size=4)
+    batch, draws = _inputs(t)
+    case = {"kind": "histogan", "trainer": kw, "state": None,
+            "steps": [{"batch": {k: v.cpu() for k, v in batch.items()},
+                       "draws": dp_step.to_device(draws, "cpu"), "gp": True, "pl": True}]}
+    torch.save([case], tmp_path / "cases.pt")
+    two = [r[0] for r in dp_step.spawn(tmp_path / "cases.pt", tmp_path / "out", 2, "gloo",
+                                       "cuda:0")]
+    one = dp_step.run_cases([case], "cuda")[0]
+    assert all(torch.equal(two[0]["state"][k], two[1]["state"][k]) for k in two[0]["state"])
+    assert all(abs(two[0]["metrics"][0][k] - w) <= STEP_METRIC_RTOL * abs(w) + 1e-7
+               for k, w in one["metrics"][0].items())
+    assert _rel(two[0]["state"], one["state"]) <= STEP_PARAM_REL
+    assert two[0]["launches"] == {"histogram_fwd": 1, "histogram_bwd": 1}

@@ -133,6 +133,30 @@ def test_device_batches_match_jax(data, mesh, mode, capsys):
                 np.testing.assert_allclose(v.numpy(), want[k], rtol=0, atol=HIST_TOL, err_msg=k)
 
 
+@pytest.mark.parametrize("mode", [
+    dict(), dict(self_hist=True, include_g_images=True), dict(include_g_images=True),
+    dict(self_hist=True), dict(aug_prob=0.5), dict(aug_prob=0.5, include_g_images=True),
+    dict(aug_prob=0.5, self_hist=True, include_g_images=True)],
+    ids=["histogan", "self_hist_g_images", "g_images", "self_hist", "aug", "aug_g_images",
+         "aug_self_hist_g_images"])
+def test_the_shards_batches_make_the_unsharded_batch(data, mode):
+    """Two data-parallel ranks' batches (``shard`` 0 and 1 of 2), joined
+    along the batch axis, are bit for bit the one process's batch of the
+    same seed, at accumulation 2: each rank trains on its own slice."""
+    _, _, cache, pool = data
+    full = device_source.DeviceDataSource(cache, pool, 4, 2, seed=5, device="cpu", **mode)
+    shards = [device_source.DeviceDataSource(cache, pool, 4, 2, seed=5, device="cpu",
+                                             shard=(i, 2), **mode) for i in range(2)]
+    for _ in range(3):
+        want, got = next(full), [next(s) for s in shards]
+        assert all(set(g) == set(want) for g in got)
+        for k, v in want.items():
+            assert v.shape[:2] == (2, 4) and got[0][k].shape[:2] == (2, 2), k
+            assert torch.equal(torch.cat([g[k] for g in got], dim=1), v), k
+    with pytest.raises(ValueError, match="not divisible"):
+        device_source.DeviceDataSource(cache, pool, 3, 2, device="cpu", shard=(0, 2))
+
+
 def test_sample_crop_boxes_bit_for_bit():
     for size, prob, seed in ((16, 1.0, 0), (32, 0.5, 1), (7, 0.9, 2), (256, 1.0, 3)):
         got = device_source.sample_crop_boxes(np.random.default_rng(seed), 64, size, prob)

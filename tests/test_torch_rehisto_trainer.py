@@ -5,7 +5,8 @@ gradient penalty, at accumulation 1 and 2, and with
 recoloring options, the RecoloringTrainer's steps, checkpoints and
 evaluation grids, the ``rehistogan-torch`` CLI (``--generate`` toward an
 image, a ``.npy``, a folder and ``--sampling``; ``--load_pt`` and
-``--export_pt``) and the options that are not ported.
+``--export_pt``) and the options that are not ported (FSDP), or that need
+torchrun (more than one device).
 
 The train step runs at 32 px, capacity 4, latent 32, style depth 2 and 64
 histogram bins (so the histograms go through K1's and K2's plain
@@ -117,16 +118,17 @@ def _named_grads(state, opt, prefixes):
             for p in prefixes for n, w in getattr(state, p).named_parameters()}
 
 
-def _rehisto_step_parity(tmp_path, apply_gp, accum, fixed, **options):
+def _rehisto_step_parity(tmp_path, apply_gp, accum, fixed, remat=False, **options):
     """One JAX recoloring step and the port's from the same weights, batch
     and noise; with ``options`` (attn_layers, fq_layers, fq_dict_size) the
-    D has them, with a random codebook. Returns (port trainer, JAX state
+    D has them, with a random codebook; with ``remat`` both sides'
+    models checkpoint their blocks. Returns (port trainer, JAX state
     after, batch, draws)."""
-    cfg = JaxReConfig(gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP,
-                      **options)
+    cfg = JaxReConfig(gradient_accumulate_every=accum, fixed_gan_weights=fixed, remat=remat,
+                      **STEP, **options)
     bundle = _jax_bundle(True, False, seed=60, size=cfg.image_size, hbin=cfg.hist_bin)
     jd = JaxDiscriminator(cfg.image_size, cfg.network_capacity, fq_layers=cfg.fq_layers,
-                          fq_dict_size=cfg.fq_dict_size, attn_layers=cfg.attn_layers)
+                          fq_dict_size=cfg.fq_dict_size, attn_layers=cfg.attn_layers, remat=remat)
     vq = {}
     if options:
         bundle["params_d"] = random_params(jd, 64, jnp.zeros((1, cfg.image_size,
@@ -135,9 +137,9 @@ def _rehisto_step_parity(tmp_path, apply_gp, accum, fixed, **options):
         bundle["vq_stats"] = vq
     models = jax_rehisto_steps.RecolorModels(
         JaxED(cfg.image_size, cfg.network_capacity, cfg.hist_bin, cfg.latent_dim,
-              cfg.style_depth, True, False),
+              cfg.style_depth, True, False, remat=remat),
         JaxHistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
-        JaxRecoloringGAN(cfg.image_size, cfg.latent_dim, cfg.network_capacity), jd)
+        JaxRecoloringGAN(cfg.image_size, cfg.latent_dim, cfg.network_capacity, remat=remat), jd)
     tx = jax_diffgrad(LR, 0.5, 0.9)
     state = JaxState(step=jnp.zeros((), jnp.int32), params_g=bundle["params_g"],
                      params_d=bundle["params_d"], opt_g=tx.init(bundle["params_g"]),
@@ -150,8 +152,8 @@ def _rehisto_step_parity(tmp_path, apply_gp, accum, fixed, **options):
     new = jax.device_get(new)
 
     t = RecoloringTrainer("p", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu", seed=0,
-                          gradient_accumulate_every=accum, fixed_gan_weights=fixed, **STEP,
-                          **options)
+                          gradient_accumulate_every=accum, fixed_gan_weights=fixed, remat=remat,
+                          **STEP, **options)
     t.init_GAN()
     assert t.load_state_dict(convert.rehisto_state_dict_from_jax(bundle)) == []
     batch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -441,9 +443,15 @@ def test_refused_options(tmp_path, images):
             t.close()
         assert out[0] is not None and (out[1] is None) == ("sync_every" in kw)
         assert all(np.isfinite(v) for v in out[0].values())
-    for kw in (dict(remat=True), dict(num_devices=2), dict(param_sharding="fsdp")):
-        with pytest.raises(NotImplementedError):
-            _trainer(tmp_path, **kw)
+    # remat is ported: it builds checkpointed models with the same weights;
+    # more than one device needs torchrun, and FSDP is not ported
+    t = _trainer(tmp_path, remat=True)
+    t.init_GAN()
+    assert t.cfg.remat and t.ED.remat and t.G.remat and t.D.remat
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        _trainer(tmp_path, num_devices=2)
+    with pytest.raises(NotImplementedError, match="autograd.grad"):
+        _trainer(tmp_path, param_sharding="fsdp")
     with pytest.raises(ValueError):
         _trainer(tmp_path, precision="fp16")
     if not torch.cuda.is_available():  # no silent move to the CPU
@@ -454,9 +462,10 @@ def test_refused_options(tmp_path, images):
     # the CLI passes what the trainer refuses on (bf16, upsampling,
     # post-recoloring and face extraction are ported: their tests are
     # tests/test_torch_rehisto_bf16.py and tests/test_torch_rehisto_post.py)
-    for extra in (["--remat", "True"], ["--num_devices", "2"]):
-        with pytest.raises(NotImplementedError):
-            cli.main([*dirs, *extra])
+    with pytest.raises(ValueError, match="torchrun"):
+        cli.main([*dirs, "--num_devices", "2"])
+    with pytest.raises(NotImplementedError):
+        cli.main([*dirs, "--param_sharding", "fsdp"])
     # --fq_layers and --attn_layers reach the trainer, which trains with them
     # and so do --sync_every and --device_dataset
     cli.main([*dirs, "--data", str(images), "--name", "opts", "--hist_bin", "16",

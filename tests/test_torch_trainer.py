@@ -176,15 +176,11 @@ def test_nan_rolls_back_and_raises(images, tmp_path, monkeypatch):
     {"attn_layers": (1,)}, {"fq_layers": (1,)}, {"remat": True}])
 def test_unported_options_raise(tmp_path, images, option):
     """The options not ported raise. DiffAugment, the discriminator's
-    attention and VQ layers, the dataset held on the device and FID,
-    ported since, build and take the step-0 step (GP, PL, save and
+    attention and VQ layers, the dataset held on the device, FID and
+    remat, ported since, build and take the step-0 step (GP, PL, save and
     evaluate; FID too), the codebook in D's state dict and no augmentation
     key anywhere."""
     (name, value), = option.items()
-    if name == "remat":
-        with pytest.raises(NotImplementedError):
-            _trainer(tmp_path, **option)
-        return
     extra = {"fid_num_samples": 2} if name == "calculate_fid_every" else {}
     t = _trainer(tmp_path, aug_types=["color", "translation", "cutout", "offset"], **option,
                  **extra)
@@ -195,6 +191,8 @@ def test_unported_options_raise(tmp_path, images, option):
     finally:
         t.close()
     assert all(np.isfinite(v) for v in m.values())
+    if name == "remat":
+        assert t.cfg.remat and t.G.remat and t.D.remat
     if name in ("device_dataset", "calculate_fid_every"):
         assert source == "DeviceDataSource" and getattr(t, name) == value
         assert (t.last_fid is not None) == (name == "calculate_fid_every")
@@ -207,7 +205,8 @@ def test_unported_options_raise(tmp_path, images, option):
     assert not any("aug" in k for k in keys)
     assert any(k.startswith("D.attn_blocks.0.") for k in keys) == (name == "attn_layers")
     assert any(k.startswith("D.quantize_blocks.0.") for k in keys) == (name == "fq_layers")
-    assert getattr(t.cfg, name) == (tuple(value) if name != "aug_prob" else value)
+    assert getattr(t.cfg, name) == (tuple(value) if name in ("attn_layers", "fq_layers")
+                                    else value)
 
 
 @pytest.mark.parametrize("option", [
