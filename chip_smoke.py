@@ -47,8 +47,8 @@ Phases, each printing its lines:
      weights back to checkpoint 0;
   DD1r. R2b's host-bound cell (reHistoGAN bf16 at 2 x 8) on both sources,
      each syncing every step and every 4th: one trainer per source, timed
-     windows of 3 plain steps taken in turn and back (ABBA), the busy
-     share over one profiled plain step, K1 and K2 exactly 16 and 8 a step;
+     windows of 3 plain steps taken in turn and back (ABBA), K1 and K2
+     exactly 16 and 8 a step;
   DD2. residency: a DeviceDataSource over a synthetic 4319 x 256 x 256 x 3
      uint8 cache and a 4319 x 3 x 64 x 64 pool (the reference's landscape
      set): torch.cuda.memory_allocated before and after, ms per batch at
@@ -125,7 +125,7 @@ Phases, each printing its lines:
      lower the reconstruction loss;
   P2. projection steps/s on the card under the JAX bench's names
      (projection_{z_space,style_space,z_space_vgg}_steps_per_sec_256px),
-     perf_out's window over 200 steps, two runs each; with --profile one
+     perf_out's window over 200 steps, one run each; with --profile one
      profiled step of each (device busy ms and share);
   P3. histogan-projection-gaussian-torch and -to-latent-torch through
      main([...]) on a saved flagship checkpoint (20 steps, --save_every 10),
@@ -140,7 +140,9 @@ Phases, each printing its lines:
      hands to DiffGrad (G's also from its phase alone, against the seed's
      D) to a global-norm relative error of 1e-5 (the JAX
      package's gates), or 3 times what the same step without remat
-     moves when run twice (the card's atomics), K1 and K2 launched alike;
+     moves between runs (the card's atomics; the step without remat runs
+     three times, and each gap and floor is a median), K1 and K2 launched
+     alike;
      one more plain and GP+PL step each way, timed, with
      torch.cuda.max_memory_allocated;
      R5, one bf16 recoloring GP step at the CLI's defaults with remat and
@@ -148,28 +150,46 @@ Phases, each printing its lines:
      metrics to 1e-2, its D and G gradients as RM's; R512,
      the JAX package's 512 px recipe (capacity 16, batch 8, bf16, bf16
      DiffGrad state) with and without remat, each step's ms and peak;
-  DP. data parallel: tools/dp_step.py spawns 2 ranks on the one card over
-     gloo (NCCL takes one rank a GPU) at a global batch of 8 (256 px,
-     capacity 16): 3 pinned steps (GP+PL, plain, GP) against the same steps
-     in this process: step 0's D losses to 5e-5 and D's step-0 gradient to
-     1e-5 (before any update), the rest to bounds on the GAN's drift
-     (DP_G_METRIC_RTOL, DP_DRIFT_*), the ranks' parameters bitwise equal,
-     K1 and K2 on every rank, each step's ms; then ``torchrun --nproc_per_node
-     1 -m histogan_tpu_torch.cli.histogan ... --num_devices 1`` over NCCL
-     for 2 steps (capacity 4: its step-0 checkpoint stays small);
+  ranks. tools/dp_step.py spawns 2 ranks on the one card over gloo (NCCL
+     takes one rank a GPU), once, for the cases of DP, FS, FS512 and DS;
+  DP. data parallel at a global batch of 8 (256 px, capacity 16): 3 pinned
+     steps (GP+PL, plain, GP) against the same steps in this process: step
+     0's D losses to 5e-5 and D's step-0 gradient to 1e-5 (before any
+     update), the rest to bounds on the GAN's drift (DP_G_METRIC_RTOL,
+     DP_DRIFT_*), the ranks' parameters bitwise equal, K1 and K2 on every
+     rank, each step's ms, each rank's state bytes and peak;
+  FS. DP's case with param_sharding='fsdp' (parallel/fsdp.py): DP's gates
+     against DP's one-process runs, the gathered state bitwise equal on
+     both ranks, K1 and K2 once a step on each, each rank's state (under 0.6
+     of DP's), peak and ms beside DP's; then ``torchrun --nproc_per_node 1
+     -m histogan_tpu_torch.cli.histogan ... --num_devices 1 --param_sharding
+     fsdp`` over NCCL for 2 steps (capacity 4: its step-0 checkpoint stays
+     small), whose model_0.pt loads into a one-process replicated Trainer;
+  FS512. R512's recipe (512 px, capacity 16, bf16, bf16 DiffGrad state)
+     with remat, sharded over the 2 ranks at a global batch of 8, a plain
+     and a GP+PL step: finite metrics, the ranks' gathered state alike, K1
+     and K2 on each; per rank and step the state bytes, the peak, the
+     phases' peak apart from DiffGrad's updates', beside R512's;
+  DS. the device dataset's "sharded" placement: DD2's cache and pool on
+     the 2 ranks under a per-device budget of half their bytes plus 1 MiB,
+     ceil(4319 / 2) rows a rank, the ranks' batches side by side bit for
+     bit the replicated source's at DD2's three configurations, ms per
+     batch beside DD2's;
   DB. checkify_step around a plain 256 px batch 16 step passes and sees the
      backward's ops (convolution_backward) on the card, with its seconds
      beside the step's; with one D weight NaN it raises naming the op;
   PF. Trainer.enable_profiling(1, 2) on a 3-step run writes a Chrome trace
      of steps 1-2 holding K1's and K2's kernels.
-DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2, P3, RM, DP, DB and PF
-run after phase 8b,
+DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2, P3, RM, ranks, DP,
+FS, FS512, DS, DB and PF run after phase 8b,
 before the phases that run steps on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
 too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
 the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
 a pool entry.
 Then one JSON line with the kernels, and last the result line. Any failed
-check raises, so the script exits non-zero and prints no result.
+check raises, so the script exits non-zero and prints no result. The whole
+run, the kernels' builds included, is to end within 1200 s: measurements
+are cut before checks are.
 """
 
 from __future__ import annotations
@@ -178,10 +198,12 @@ import argparse
 import contextlib
 import copy
 import io
+import itertools
 import json
 import math
 import os
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -350,6 +372,7 @@ CARD = "cuda"  # the device under test
 # as a synthetic uint8 cache at 256 px and its 64-bin pool, and the batch
 # shapes each trainer draws from it
 RESIDENCY_IMAGES = 4319
+RESIDENCY_DATA = (RESIDENCY_IMAGES, 256, 64, 0)  # tools/dp_step.py's synthetic_data
 CROP_LEVELS, CROP_SHARE = 1, 1e-3  # on-card crop vs the CPU's: levels, share of entries
 # DD2: a DeviceDataSource batch must not wait for the device. Behind
 # torch.cuda._sleep of QUEUED_CYCLES (~0.1 s at the H100's 1.98 GHz) the
@@ -2183,8 +2206,10 @@ def phase_pool_clis(histogram_cuda, smi) -> dict:
 PROJECTION_STEPS = 50
 PROJECTION_LR = 0.1  # the CLIs' default
 # P2: the JAX bench's protocol (bench.py:257-326): steps/s over perf_out's
-# window, which opens after the first step; 200 steps a run, two runs.
+# window, which opens after the first step; 200 steps a run, one run a
+# mode (one, not two, for the script's time limit).
 PROJECTION_BENCH_STEPS = 200
+PROJECTION_BENCH_RUNS = 1
 PROJECTION_BENCH = (("z_space", "gaussian", 0.0), ("style_space", "latent", 0.0),
                     ("z_space_vgg", "gaussian", 0.001))
 # P3's photo, H x W: the post-processed files take its size (MKL) or pad
@@ -2379,7 +2404,7 @@ def phase_projection_timed(smi, profile: Optional[Path]) -> dict:
         for label, mode, vgg_w in PROJECTION_BENCH:
             fn = projection.project_gaussian if mode == "gaussian" else projection.project_to_latent
             runs = []
-            for i in range(2):
+            for i in range(PROJECTION_BENCH_RUNS):
                 perf = {}
                 with contextlib.redirect_stdout(io.StringIO()):
                     fn(t, str(photo), results_dir=str(work / f"res_{label}"),
@@ -2398,7 +2423,7 @@ def phase_projection_timed(smi, profile: Optional[Path]) -> dict:
                         profile=(profile, label))
                 busy_ms, share = probe["profiled"]
                 prof = f"; one profiled step: device busy {busy_ms:.2f} ms, busy share {share:.3f}"
-            print(f"P2 {name}: {runs[0]:.2f} and {runs[1]:.2f} steps/s over "
+            print(f"P2 {name}: {' and '.join(f'{r:.2f}' for r in runs)} steps/s over "
                   f"{PROJECTION_BENCH_STEPS - 1} steps (fp32, batch 1, "
                   f"{'VGG on' if vgg_w else 'VGG off'}){prof} on {smi}")
         t.close()
@@ -2662,9 +2687,10 @@ def phase_loaders_rehisto(histogram_cuda, smi) -> dict:
     sync_every 4 syncs on) and the three plain steps after it (timed), in
     the order of PATHS and back, so that the host's drift over the phase
     falls on every side alike. Per source and sync: each window's imgs/s,
-    the busy share over one profiled plain step, and K1 and K2 launches,
-    exactly 16 and 8 a step. Returns {path: {kernel: launches}} (the
-    default's path is R2b's, rehisto_training_bf16)."""
+    and K1 and K2 launches, exactly 16 and 8 a step (no profiled step, for
+    the script's time limit: its busy share is not measured here). Returns
+    {path: {kernel: launches}} (the default's path is R2b's,
+    rehisto_training_bf16)."""
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
@@ -2711,17 +2737,12 @@ def phase_loaders_rehisto(histogram_cuda, smi) -> dict:
         check(all(math.isfinite(v) for i in synced for v in out[i].values()),
               f"DD1r {paths[key]}: finite losses on the synced steps")
     for key, path in paths.items():
-        t = trainers[key[0]]
-        t.sync_every = key[1]
-        t.train(**REHISTO_HYPER)  # the GP step
-        _, busy = profile_fns({"plain step": lambda: t.train(**REHISTO_HYPER)}, WORK / "prof",
-                              f"dd1r_{path}_", timed=0)["plain step"]
         want = (steps[key] * per_step[0], steps[key] * per_step[1])
         got = (counts[key]["histogram_fwd"], counts[key]["histogram_bwd"])
         check(got == want, f"DD1r {path}: K1 and K2 {got} in {steps[key]} steps, want {want}")
         print(f"DD1r {path}: source {key[0]}, sync_every {key[1]}; plain steps, two windows of "
               f"3: {' / '.join(f'{r:.2f}' for r in rates[key])} imgs/s (batch 2 x accumulation "
-              f"{REHISTO_ACCUM}, bf16); one plain step profiled: device busy share {busy:.3f}; "
+              f"{REHISTO_ACCUM}, bf16); "
               f"K1 {got[0]} and K2 {got[1]} in {steps[key]} steps on {smi}")
     for t in trainers.values():
         t.close()
@@ -2738,15 +2759,13 @@ def phase_residency(smi) -> None:
     fp32 pool: the device memory it takes, ms per batch at HistoGAN's 16 x
     1, reHistoGAN's 2 x 8 (self_hist, include_g_images) and with aug_prob
     0.5, each batch held to numpy indexing of its draws (images exact,
-    histograms to HIST_ATOL) and the on-card crop to the CPU's."""
+    histograms to HIST_ATOL) and the on-card crop to the CPU's. Returns
+    {config: ms per batch}."""
     from histogan_tpu_torch.data.device_source import DeviceDataSource, crop_resize_u8
+    from histogan_tpu_torch.tools.dp_step import synthetic_data
 
-    n, size, h = RESIDENCY_IMAGES, FLAGSHIP["image_size"], 64
-    rng = np.random.default_rng(0)
-    cache = np.frombuffer(bytearray(rng.bytes(n * size * size * 3)), np.uint8).reshape(
-        n, size, size, 3)
-    pool = rng.random((n, 3, h, h), dtype=np.float32)
-    pool /= pool.sum(axis=(1, 2, 3), keepdims=True)
+    cache, pool = synthetic_data(*RESIDENCY_DATA)
+    n, size, h = RESIDENCY_DATA[:3]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
@@ -2762,6 +2781,7 @@ def phase_residency(smi) -> None:
                "reHistoGAN 2 x 8 self_hist include_g_images": dict(
                    batch_size=2, accum=8, self_hist=True, include_g_images=True),
                "HistoGAN 16 x 1 aug_prob 0.5": dict(aug_prob=0.5)}
+    out = {}
     for name, kw in configs.items():
         if first is not None:
             src, first = first, None
@@ -2814,8 +2834,10 @@ def phase_residency(smi) -> None:
         print(f"DD2 {name}: {ms:.3f} ms per batch (CUDA events over 20, host draws included), "
               f"{host_ms:.3f} ms of the host behind queued device work; histograms vs numpy "
               f"max|d| {worst_h:.3e}{crop}")
+        out[name] = ms
         del src
         torch.cuda.empty_cache()
+    return out
 
 
 def phase_fid(t, smi) -> None:
@@ -2882,6 +2904,7 @@ CARD_NOISE_FACTOR = 3.0
 # the weight gradients' sums (atomics) into the G phase's losses
 REMAT_BF16_LOSS_RTOL = 1e-2
 DP_BATCH, DP_RANKS = 8, 2  # 2 ranks on the one card, 4 images each
+DP_FLAGS = [(True, True), (False, False), (True, False)]  # DP's and FS's: GP+PL, plain, GP
 # DP beyond D's first update. G's step-0 metrics come after it: DiffGrad's
 # sign-like first update turns rounding in a near-zero gradient into a full
 # lr, so they may move further than the JAX gate (measured on the card
@@ -2895,6 +2918,10 @@ DP_G_METRIC_RTOL = 5e-4
 DP_DRIFT_METRIC_RTOL = 0.25
 DP_DRIFT_PARAM_REL = 1e-2
 D_PHASE_METRICS = ("d_loss", "gp_loss", "q_loss")
+# FS512: a plain step, then the GP+PL step (its peaks are the steady
+# state's: DiffGrad's state is made in the first update)
+FS512_FLAGS = [(False, False), (True, True)]
+DS_BATCHES = 8  # DS: batches of each configuration (3 warm-up, 5 timed)
 # the JAX package's 512 px recipe (its configuration only)
 RECIPE_512 = dict(image_size=512, network_capacity=16, latent_dim=512, style_depth=8,
                   batch_size=8, gradient_accumulate_every=1, precision="bf16",
@@ -2962,6 +2989,29 @@ def against_floor(what: str, gap: float, floor: float, gate: float) -> None:
                           f"floor {floor:.3e})")
 
 
+def median_gap(dist, got, refs: list) -> tuple:
+    """(The median of ``dist(got, ref)`` over the runs ``refs`` of the
+    reference, the median of ``dist`` over their pairs): a run held to the
+    reference's spread between runs, each side from three samples: one
+    floor sample of RM's gradients ranged over a factor of five across
+    runs on the H100."""
+    gap = statistics.median(dist(got, r) for r in refs)
+    floor = statistics.median(dist(a, b) for a, b in itertools.combinations(refs, 2))
+    return gap, floor
+
+
+def median_rel_err(got: dict, refs: list) -> tuple:
+    """``median_gap`` of ``param_rel_err`` on {name: tensor} dicts, computed
+    on the card in float64 (on the host, six such sums over 190 M entries
+    a tensor set cost a minute)."""
+    def card(d):
+        return {k: v.to(CARD, torch.float64) for k, v in d.items()}
+
+    out = median_gap(param_rel_err, card(got), [card(r) for r in refs])
+    torch.cuda.empty_cache()
+    return out
+
+
 def grad_gaps(what: str, got: dict, want: dict, again: dict) -> None:
     """Each phase's applied gradients of ``got`` ({(step, phase): grads},
     as remat_run's ``grads``) against ``want``'s, to REMAT_PARAM_REL or
@@ -2997,10 +3047,11 @@ def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
     against the seed's D, and its gradients (summed over the micro-
     batches) are kept as ``grads[(0, "G alone")]`` and not applied: no D
     update's rounding reaches them."""
+    from histogan_tpu_torch.tools import dp_step
+    from histogan_tpu_torch.tools.dp_step import to_device
     from histogan_tpu_torch.train import rehisto_steps, steps
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
     from histogan_tpu_torch.train.trainer import Trainer
-    from histogan_tpu_torch.tools.dp_step import to_device
 
     cls = RecoloringTrainer if rehisto else Trainer
     t = cls("remat", WORK / "remat" / "r", WORK / "remat" / "m", device=CARD, seed=0,
@@ -3066,7 +3117,8 @@ def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
     steps._update = rehisto_steps._update = update
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
-    out = {"rows": rows, "counts": counts, "params": params or live_params(t), "grads": grads}
+    out = {"rows": rows, "counts": counts, "params": params or live_params(t), "grads": grads,
+           "state_bytes": dp_step.state_bytes(t)}
     del t
     torch.cuda.empty_cache()
     return out
@@ -3077,12 +3129,12 @@ def phase_remat(histogram_cuda, smi) -> dict:
     latent 512, batch 16, fp32): a plain step and a GP+PL step, each from
     the seed's weights (a step after an update would carry the card's
     run-to-run rounding through DiffGrad's sign-like first update), with
-    remat and without (twice, for the floor), on the same pinned inputs:
-    the metrics to REMAT_METRIC_RTOL, the parameters after each step and
-    each phase's gradients (as handed to DiffGrad; G's also from its phase
-    alone against the seed's D, which D's sign-like update cannot reach)
-    to REMAT_PARAM_REL (or CARD_NOISE_FACTOR times the floor), the K1 and
-    K2 launches equal; the
+    remat and without (three times, for the floor: ``median_gap``), on the
+    same pinned inputs: the metrics to REMAT_METRIC_RTOL, the parameters
+    after each step and each phase's gradients (as handed to DiffGrad; G's
+    also from its phase alone against the seed's D, which D's sign-like
+    update cannot reach) to REMAT_PARAM_REL (or CARD_NOISE_FACTOR times the
+    floor), the K1 and K2 launches equal; the
     GP+PL step's trainer then takes one more plain and GP+PL step each
     way, timed, with their peak memory and the peak before DiffGrad's
     updates.
@@ -3092,10 +3144,12 @@ def phase_remat(histogram_cuda, smi) -> dict:
     gradients as RM's. R512: the
     512 px recipe (capacity 16, batch 8, bf16 with bf16 DiffGrad state),
     plain and GP+PL twice each way, the second pair timed.
-    Returns {remat: {kernel: launches}} of the 256 px runs."""
+    Returns {"remat": {kernel: launches}} of the 256 px runs and
+    {"r512": {remat: {"rows": the timed plain and GP+PL rows,
+    "state_bytes"}}}."""
     kw = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1)
     runs = {}
-    for r in (False, True, "again"):
+    for r in (False, True, "again", "again2"):
         one = remat_run(histogram_cuda, r is True, kw, [(False, False)], seed=31, grads_steps=1)
         two = remat_run(histogram_cuda, r is True, kw, [(True, True), (False, False), (True, True)],
                         seed=32, timed_from=1, grads_steps=1)
@@ -3105,20 +3159,29 @@ def phase_remat(histogram_cuda, smi) -> dict:
                              for (_, phase), g in run["grads"].items()},
                    "counts": {k: one["counts"][k] + two["counts"][k] for k in one["counts"]},
                    "timed": two["rows"][1:]}
-    plain, checked, again = runs[False], runs[True], runs["again"]
-    gap = metric_gaps(checked["metrics"], plain["metrics"])
-    floor = metric_gaps(again["metrics"], plain["metrics"])
+    checked, refs = runs[True], [runs[r] for r in (False, "again", "again2")]
+    plain = refs[0]
+    gap, floor = median_gap(metric_gaps, checked["metrics"], [r["metrics"] for r in refs])
     print(f"RM: remat against none, a plain and a GP+PL step from the seed's weights: metric "
           f"gaps per step {worst_metrics(checked['metrics'], plain['metrics'])} (no remat "
-          f"twice: {worst_metrics(again['metrics'], plain['metrics'])})")
+          f"twice: {worst_metrics(refs[1]['metrics'], plain['metrics'])}); median over the 3 "
+          f"runs without remat {gap:.3e}, their own {floor:.3e}")
     against_floor("RM: remat's metrics", gap, floor, REMAT_METRIC_RTOL)
-    for step, want in plain["params"].items():
-        rel, rel_floor = (param_rel_err(r["params"][step], want) for r in (checked, again))
+    for step in plain["params"]:
+        rel, rel_floor = median_rel_err(checked["params"][step], [r["params"][step] for r in refs])
         print(f"RM: the parameters after the {step} step, global-norm relative error {rel:.3e} "
-              f"(no remat twice: {rel_floor:.3e})")
+              f"(median over the 3 runs without remat; theirs {rel_floor:.3e})")
         against_floor(f"RM: remat's parameters after the {step} step", rel, rel_floor,
                       REMAT_PARAM_REL)
-    grad_gaps("RM: remat", checked["grads"], plain["grads"], again["grads"])
+    check(bool(plain["grads"]) and all(set(r["grads"]) == set(plain["grads"])
+                                       for r in (checked, *refs)),
+          f"RM: remat: gradients of {sorted(plain['grads'])}")
+    for key in sorted(plain["grads"]):
+        rel, rel_floor = median_rel_err(checked["grads"][key], [r["grads"][key] for r in refs])
+        print(f"RM: remat: the {key[0]} step's {key[1]} gradient, global-norm relative error "
+              f"{rel:.3e} (median over the 3 runs without remat; theirs {rel_floor:.3e})")
+        against_floor(f"RM: remat: the {key[0]} step's {key[1]} gradient", rel, rel_floor,
+                      REMAT_PARAM_REL)
     check(plain["counts"] == checked["counts"] and plain["counts"]["histogram_fwd"] == 4
           and plain["counts"]["histogram_bwd"] == 4,
           f"RM: one K1 and one K2 a step with and without remat: {plain['counts']}, "
@@ -3128,7 +3191,7 @@ def phase_remat(histogram_cuda, smi) -> dict:
         print(f"RM: 256 px capacity 16 batch 16 fp32 {label}: plain step {p['ms']:.2f} ms, "
               f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)}; K1/K2 launches "
               f"{r['counts']} in 4 steps on {smi}")
-    del runs, plain, again
+    del runs, plain, refs
     torch.cuda.empty_cache()
 
     re_kw = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, **REHISTO_BF16)
@@ -3151,51 +3214,31 @@ def phase_remat(histogram_cuda, smi) -> dict:
     del re_runs
     torch.cuda.empty_cache()
 
+    r512 = {}
     for r in (False, True):
         run = remat_run(histogram_cuda, r, RECIPE_512, [(False, False), (True, True)] * 2,
                         seed=33)
         p, g = run["rows"][2:]
+        r512[r] = {"rows": [p, g], "state_bytes": run["state_bytes"]}
         print(f"R512: 512 px capacity 16 batch 8 bf16 (bf16 DiffGrad state) "
               f"{'with' if r else 'without'} remat: plain step {p['ms']:.2f} ms, "
-              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)} on {smi}")
+              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)}; state "
+              f"{run['state_bytes']} bytes on {smi}")
         del run
         torch.cuda.empty_cache()
-    return {"remat": checked["counts"]}
+    return {"remat": checked["counts"], "r512": r512}
 
 
-def phase_data_parallel(histogram_cuda, smi) -> dict:
-    """DP: two ranks on the one card over gloo (NCCL puts one rank on a
-    GPU), a global batch of DP_BATCH at 256 px, capacity 16: three pinned
-    steps (GP+PL, plain, GP) from the seed's weights through
-    ``tools/dp_step.py``, against the same steps in this one process (run
-    twice, for the floor): step 0's D losses to REMAT_METRIC_RTOL and D's
-    step-0 gradient to REMAT_PARAM_REL (before any update), step 0's other
-    metrics to DP_G_METRIC_RTOL, the 3 steps to the drift bounds; the two
-    ranks' parameters bitwise equal, K1 and K2 on every rank. Then
-    ``torchrun --nproc_per_node 1`` over NCCL through the real CLI for 2
-    steps (capacity 4, so that its step-0 checkpoint stays small). Returns
-    {path: {kernel: launches}}."""
-    from histogan_tpu_torch.tools import dp_step
-    from histogan_tpu_torch.utils.config import HistoGANConfig
-
-    work = WORK / "dp"
-    work.mkdir(parents=True, exist_ok=True)
-    kw = dict(name="dp", results_dir=str(work / "r"), models_dir=str(work / "m"), seed=0,
-              **FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1)
-    cfg = HistoGANConfig(**FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1)
-    flags = [(True, True), (False, False), (True, False)]
-    case = {"kind": "histogan", "trainer": kw, "state": None, "grads_step": 0,
-            "steps": pinned_steps(cfg, flags, seed=41)}
-    torch.save([case], work / "cases.pt")
-    t0 = time.perf_counter()
-    ranks = dp_step.spawn(work / "cases.pt", work / "out", DP_RANKS, "gloo", "cuda:0",
-                          timeout=600)
-    spawn_s = time.perf_counter() - t0
-    two = [r[0] for r in ranks]
-    one, again = (dp_step.run_cases([case], CARD)[0] for _ in range(2))
+def hold_ranks_to_one(tag: str, two: list, one: dict, again: dict) -> None:
+    """DP's gates for two ranks' results of the DP case against one
+    process's (run twice, for the floor): the ranks' parameters bitwise
+    equal and their metrics alike, step 0's D losses to REMAT_METRIC_RTOL
+    and D's step-0 gradient to REMAT_PARAM_REL (before any update), step
+    0's other metrics to DP_G_METRIC_RTOL, the steps to the drift
+    bounds."""
     check(all(torch.equal(two[0]["state"][k], two[1]["state"][k]) for k in two[0]["state"]),
-          "DP: the two ranks' parameters bitwise equal after 3 steps")
-    check(two[0]["metrics"] == two[1]["metrics"], "DP: every rank reads the same metrics")
+          f"{tag}: the two ranks' parameters bitwise equal after the steps")
+    check(two[0]["metrics"] == two[1]["metrics"], f"{tag}: every rank reads the same metrics")
     d_gap = max(abs(two[0]["metrics"][0][k] - w) / max(abs(w), 1e-12)
                 for k, w in one["metrics"][0].items() if k in D_PHASE_METRICS)
     g_gap = worst_metrics(two[0]["metrics"][:1], one["metrics"][:1])[0]
@@ -3204,7 +3247,7 @@ def phase_data_parallel(histogram_cuda, smi) -> dict:
     want = {k: v for k, v in one["state"].items() if k.split(".")[0] in LIVE}
     gap, floor = (metric_gaps(r["metrics"], one["metrics"]) for r in (two[0], again))
     rel, rel_floor = (param_rel_err(r["state"], want) for r in (two[0], again))
-    print(f"DP: 2 ranks against one process: step 0's D losses {d_gap:.3e} (gate "
+    print(f"{tag}: 2 ranks against one process: step 0's D losses {d_gap:.3e} (gate "
           f"{REMAT_METRIC_RTOL}), D's step-0 gradient global-norm relative error {d_rel:.3e} "
           f"(gate {REMAT_PARAM_REL}), step 0's metrics {g_gap:.3e} (gate {DP_G_METRIC_RTOL}); "
           f"metric gaps per step {worst_metrics(two[0]['metrics'], one['metrics'])} (one "
@@ -3212,32 +3255,95 @@ def phase_data_parallel(histogram_cuda, smi) -> dict:
           f"global-norm relative error {rel:.3e} (one process twice: {rel_floor:.3e}; gates "
           f"{DP_DRIFT_METRIC_RTOL} and {DP_DRIFT_PARAM_REL})")
     check(d_gap <= REMAT_METRIC_RTOL and d_rel <= REMAT_PARAM_REL and g_gap <= DP_G_METRIC_RTOL,
-          "DP: step 0 within the gates")
+          f"{tag}: step 0 within the gates")
     check(gap <= DP_DRIFT_METRIC_RTOL and rel <= DP_DRIFT_PARAM_REL,
-          "DP: 3 steps within the drift bounds")
-    for r in (*two, one, again):
-        check(r["launches"] == {"histogram_fwd": 3, "histogram_bwd": 3},
-              f"DP: one K1 and one K2 a step on every rank: {r['launches']}")
-    print(f"DP: 2 gloo ranks on cuda:0 at global batch {DP_BATCH} (256 px, capacity 16, fp32), "
-          f"steps GP+PL/plain/GP: rank 0 {' / '.join(f'{x:.2f}' for x in two[0]['ms'])} ms, "
-          f"rank 1 {' / '.join(f'{x:.2f}' for x in two[1]['ms'])} ms; one process at batch "
-          f"{DP_BATCH} {' / '.join(f'{x:.2f}' for x in one['ms'])} ms; the spawn "
-          f"{spawn_s:.2f} s; ranks bitwise equal; launches per rank {two[0]['launches']} on "
-          f"{smi}")
-    launches = {"dp_rank0": two[0]["launches"], "dp_rank1": two[1]["launches"]}
-    del ranks, two, one, again, want
-    torch.cuda.empty_cache()
+          f"{tag}: the steps within the drift bounds")
 
+
+def dp_case(work: Path, **extra) -> dict:
+    """DP's case: the pinned steps of DP_FLAGS at 256 px, capacity 16, a
+    global batch of DP_BATCH, from the seed's weights; the live weights
+    kept (the EMA does not move in these steps)."""
+    from histogan_tpu_torch.utils.config import HistoGANConfig
+
+    kw = dict(name="dp", results_dir=str(work / "r"), models_dir=str(work / "m"), seed=0,
+              **FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1, **extra)
+    cfg = HistoGANConfig(**FLAGSHIP, batch_size=DP_BATCH, gradient_accumulate_every=1)
+    return {"kind": "histogan", "trainer": kw, "state": None, "grads_step": 0, "keep": LIVE,
+            "steps": pinned_steps(cfg, DP_FLAGS, seed=41)}
+
+
+def fs512_case(work: Path) -> dict:
+    """FS512's case: the JAX package's 512 px recipe as R512 runs it
+    (capacity 16, bf16, bf16 DiffGrad state) with remat and
+    param_sharding='fsdp', FS512_FLAGS' pinned steps; the state kept as a
+    digest."""
+    from histogan_tpu_torch.utils.config import HistoGANConfig
+
+    shape = {k: RECIPE_512[k] for k in ("image_size", "batch_size", "gradient_accumulate_every")}
+    cfg = HistoGANConfig(**FLAGSHIP | shape)
+    kw = dict(name="fs512", results_dir=str(work / "r"), models_dir=str(work / "m"), seed=0,
+              remat=True, param_sharding="fsdp", **FLAGSHIP | RECIPE_512)
+    return {"kind": "histogan", "trainer": kw, "state": None, "grads_step": None,
+            "digest": True, "steps": pinned_steps(cfg, FS512_FLAGS, seed=33)}
+
+
+def ds_cases() -> dict:
+    """DS's source cases, {DD2's configuration: case}: DD2's synthetic
+    cache and pool under a per-device budget of half their bytes plus 1
+    MiB (one rank cannot hold them, two can), DS_BATCHES batches each."""
+    from histogan_tpu_torch.tools.dp_step import synthetic_data
+
+    cache, pool = synthetic_data(*RESIDENCY_DATA)
+    budget = (cache.nbytes + pool.nbytes) // 2 + (1 << 20)
+    configs = {"HistoGAN 16 x 1": dict(batch_size=16, accum=1, flag="auto"),
+               "reHistoGAN 2 x 8 self_hist include_g_images": dict(
+                   batch_size=2, accum=8, flag="auto",
+                   options=dict(self_hist=True, include_g_images=True)),
+               "HistoGAN 16 x 1 aug_prob 0.5": dict(batch_size=16, accum=1, flag=True,
+                                                    options=dict(aug_prob=0.5))}
+    return {name: {"kind": "source", "data": RESIDENCY_DATA, "batches": DS_BATCHES,
+                   "budget": budget, **c} for name, c in configs.items()}
+
+
+def phase_ranks() -> dict:
+    """The cases of DP, FS, FS512 and DS on DP_RANKS gloo ranks on cuda:0,
+    in one spawn of ``tools/dp_step.py`` (one start-up of the ranks):
+    {"dp", "fs", "fs512": each rank's results, "ds": {configuration: each
+    rank's results}}."""
+    from histogan_tpu_torch.tools import dp_step
+
+    work = WORK / "ranks"
+    work.mkdir(parents=True, exist_ok=True)
+    sources = ds_cases()
+    cases = [dp_case(work / "dp"), dp_case(work / "fs", param_sharding="fsdp"),
+             fs512_case(work / "fs512"), *sources.values()]
+    torch.save(cases, work / "cases.pt")
+    t0 = time.perf_counter()
+    ranks = dp_step.spawn(work / "cases.pt", work / "out", DP_RANKS, "gloo", "cuda:0",
+                          timeout=900)
+    shutil.rmtree(work / "out", ignore_errors=True)
+    print(f"ranks: the {len(cases)} cases of DP, FS, FS512 and DS on {DP_RANKS} gloo ranks on "
+          f"cuda:0 in one spawn, {time.perf_counter() - t0:.2f} s")
+    per_case = [[r[i] for r in ranks] for i in range(len(cases))]
+    return {"dp": per_case[0], "fs": per_case[1], "fs512": per_case[2],
+            "ds": dict(zip(sources, per_case[3:]))}
+
+
+def torchrun_cli(tag: str, out: Path, *extra) -> list:
+    """``torchrun --nproc_per_node 1`` over NCCL through the real CLI for 2
+    steps at capacity 4 (a small step-0 checkpoint), with ``extra`` flags;
+    returns the files it wrote under models/."""
     from histogan_tpu_torch.tools.dp_step import free_port
 
-    cli = WORK / "dp_cli"
     cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc_per_node", "1",
            "--master_addr", "localhost", "--master_port", str(free_port()),
            "-m", "histogan_tpu_torch.cli.histogan", "--data", str(WORK / "images"),
-           "--name", "dp", "--new", "True", "--results_dir", str(cli / "results"),
-           "--models_dir", str(cli / "models"), "--image_size", "256",
+           "--name", "dp", "--new", "True", "--results_dir", str(out / "results"),
+           "--models_dir", str(out / "models"), "--image_size", "256",
            "--network_capacity", "4", "--batch_size", str(DP_BATCH),
-           "--gradient_accumulate_every", "1", "--num_train_steps", "2", "--num_devices", "1"]
+           "--gradient_accumulate_every", "1", "--num_train_steps", "2", "--num_devices", "1",
+           *extra]
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT),
                                                                    os.environ.get("PYTHONPATH")])),
            "NCCL_DEBUG": "INFO"}
@@ -3245,15 +3351,165 @@ def phase_data_parallel(histogram_cuda, smi) -> dict:
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
     secs = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
-    check(proc.returncode == 0, f"DP: torchrun CLI exit {proc.returncode}:\n{log[-4000:]}")
-    check("NCCL INFO" in log, "DP: the CLI's process group runs over NCCL (NCCL_DEBUG lines)")
-    made = sorted(p.name for p in (cli / "models" / "dp").iterdir())
-    check("model_0.pt" in made and (cli / "results" / "dp" / "metrics.jsonl").is_file(),
-          f"DP: the CLI under torchrun wrote its checkpoint and log ({made})")
-    print(f"DP: torchrun --nproc_per_node 1 -m histogan_tpu_torch.cli.histogan --num_devices 1 "
-          f"(NCCL; 256 px, capacity 4, batch {DP_BATCH}, 2 steps) exit 0 in {secs:.2f} s; "
-          f"wrote {made} on {smi}")
+    check(proc.returncode == 0, f"{tag}: torchrun CLI exit {proc.returncode}:\n{log[-4000:]}")
+    check("NCCL INFO" in log, f"{tag}: the CLI's process group runs over NCCL (NCCL_DEBUG lines)")
+    made = sorted(p.name for p in (out / "models" / "dp").iterdir())
+    check("model_0.pt" in made and (out / "results" / "dp" / "metrics.jsonl").is_file(),
+          f"{tag}: the CLI under torchrun wrote its checkpoint and log ({made})")
+    print(f"{tag}: torchrun --nproc_per_node 1 -m histogan_tpu_torch.cli.histogan --num_devices 1 "
+          f"{' '.join(extra)} (NCCL; 256 px, capacity 4, batch {DP_BATCH}, 2 steps) exit 0 in "
+          f"{secs:.2f} s; wrote {made}")
+    return made
+
+
+def rank_rows(two: list) -> str:
+    """Each rank's ms a step and peak of max_memory_allocated."""
+    return "; ".join(
+        f"rank {r}: {' / '.join(f'{x:.2f}' for x in res['ms'])} ms, peak "
+        f"{max(p['peak'] for p in res['peaks'])} bytes, state {res['state_bytes']} bytes"
+        for r, res in enumerate(two))
+
+
+def phase_data_parallel(histogram_cuda, smi, two: list) -> tuple:
+    """DP: two ranks on the one card over gloo (NCCL puts one rank on a
+    GPU), DP's case (``dp_case``) through ``tools/dp_step.py``
+    (``phase_ranks``: ``two``), against the same steps in this one process
+    (run twice, for the floor), in ``hold_ranks_to_one``'s gates; K1 and K2
+    on every rank. Returns
+    ({path: {kernel: launches}}, {"one", "again": the one-process runs,
+    "two": the ranks' results}) for FS, which also runs the CLI under
+    ``torchrun`` (one process: FSDP there is this replicated path)."""
+    from histogan_tpu_torch.tools import dp_step
+
+    case = dp_case(WORK / "dp")
+    one, again = (dp_step.run_cases([case], CARD)[0] for _ in range(2))
+    hold_ranks_to_one("DP", two, one, again)
+    for r in (*two, one, again):
+        check(r["launches"] == {"histogram_fwd": len(DP_FLAGS), "histogram_bwd": len(DP_FLAGS)},
+              f"DP: one K1 and one K2 a step on every rank: {r['launches']}")
+    print(f"DP: 2 gloo ranks on cuda:0 at global batch {DP_BATCH} (256 px, capacity 16, fp32), "
+          f"steps GP+PL/plain/GP: {rank_rows(two)}; one process at batch {DP_BATCH} "
+          f"{' / '.join(f'{x:.2f}' for x in one['ms'])} ms, state {one['state_bytes']} bytes; "
+          f"ranks bitwise equal; launches per rank {two[0]['launches']} on {smi}")
+    launches = {"dp_rank0": two[0]["launches"], "dp_rank1": two[1]["launches"]}
+    for r in two:
+        del r["grads"]
+    torch.cuda.empty_cache()
+    return launches, {"one": one, "again": again, "two": two}
+
+
+def phase_fsdp(histogram_cuda, smi, dp: dict, two: list) -> dict:
+    """FS: DP's case with param_sharding='fsdp' on the two gloo ranks
+    (``phase_ranks``: ``two``): DP's
+    gates against DP's one-process runs (``hold_ranks_to_one``), the
+    gathered state bitwise equal on both ranks, K1 and K2 once a step on
+    each; each rank's state bytes, peak and ms a step beside DP's ranks';
+    whether FSDP's parameters are bitwise DP's. Then ``torchrun
+    --nproc_per_node 1`` over NCCL through the real CLI for 2 steps with
+    ``--param_sharding fsdp`` (capacity 4, so that its step-0 checkpoint
+    stays small; at one process the replicated path), and its model_0.pt
+    into a one-process replicated Trainer. Returns {path: {kernel:
+    launches}}."""
+    from histogan_tpu_torch.parallel import mesh
+    from histogan_tpu_torch.train.trainer import Trainer
+
+    hold_ranks_to_one("FS", two, dp["one"], dp["again"])
+    for r in two:
+        check(r["launches"] == {"histogram_fwd": len(DP_FLAGS), "histogram_bwd": len(DP_FLAGS)},
+              f"FS: one K1 and one K2 a step on every rank: {r['launches']}")
+    dp_two = dp["two"]
+    share = [f["state_bytes"] / d["state_bytes"] for f, d in zip(two, dp_two)]
+    check(all(s < 0.6 for s in share), f"FS: each rank holds under 0.6 of DP's state ({share})")
+    same = all(torch.equal(two[0]["state"][k], dp_two[0]["state"][k]) for k in two[0]["state"])
+    print(f"FS: 2 gloo ranks on cuda:0, param_sharding='fsdp', global batch {DP_BATCH} (256 px, "
+          f"capacity 16, fp32), steps GP+PL/plain/GP: {rank_rows(two)}; DP's ranks: "
+          f"{rank_rows(dp_two)}; state per rank {share[0]:.4f} and {share[1]:.4f} of DP's; "
+          f"parameters after the steps bitwise DP's: {same}; launches per rank "
+          f"{two[0]['launches']}; collectives all_gather_into_tensor and reduce_scatter_tensor "
+          f"(torch {torch.__version__}, staged through the host on gloo) on {smi}")
+    launches = {"fsdp_rank0": two[0]["launches"], "fsdp_rank1": two[1]["launches"]}
+    del two
+    out = WORK / "fs_cli"
+    made = torchrun_cli("FS", out, "--param_sharding", "fsdp")
+    t = Trainer("dp", str(out / "results"), str(out / "models"), image_size=256,
+                network_capacity=4, batch_size=DP_BATCH, device=CARD)
+    t.load(0)
+    saved = torch.load(out / "models" / "dp" / "model_0.pt", map_location="cpu",
+                       weights_only=True)["GAN"]
+    got = t.reference_state_dict()
+    check(set(got) == set(saved) and all(torch.equal(got[k].cpu(), saved[k]) for k in saved),
+          "FS: the CLI's FSDP checkpoint loads into a one-process replicated Trainer")
+    print(f"FS: the CLI with --param_sharding fsdp wrote {made}; model_0.pt ({len(saved)} "
+          f"tensors) loads into a one-process replicated Trainer on {smi}")
+    del t
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_fsdp512(histogram_cuda, smi, r512: dict, two: list) -> dict:
+    """FS512: ``fs512_case`` on the two gloo ranks at a global batch of 8
+    (``phase_ranks``: ``two``), a plain step (DiffGrad's state is made in
+    the first update) and the GP+PL step: finite metrics, the gathered
+    state alike on both ranks (its digest), K1 and K2 on each rank; per
+    rank and step the state bytes, the step's peak and the phases' forward
+    and backward's apart from DiffGrad's updates', beside R512's one
+    process with remat. Returns {path: {kernel: launches}}."""
+    flags = FS512_FLAGS
+    check(all(math.isfinite(v) for r in two for m in r["metrics"] for v in m.values()),
+          f"FS512: finite metrics {two[0]['metrics']}")
+    check(two[0]["state"] == two[1]["state"], "FS512: the gathered state alike on both ranks")
+    check(all(r["launches"] == {"histogram_fwd": len(flags), "histogram_bwd": len(flags)}
+              for r in two), f"FS512: one K1 and one K2 a step on every rank "
+                             f"{[r['launches'] for r in two]}")
+    one = r512[True]  # its rows: plain, GP+PL, as FS512_FLAGS
+    for i, label in enumerate(("plain", "GP+PL")):
+        print(f"FS512: the {label} step, 512 px capacity 16 global batch 8 bf16 (bf16 DiffGrad "
+              f"state) remat, FSDP over 2 gloo ranks: "
+              + "; ".join(f"rank {r}: {res['ms'][i]:.2f} ms, state {res['state_bytes']} bytes, "
+                          f"{peak_text(res['peaks'][i])}" for r, res in enumerate(two))
+              + f"; R512's one process with remat: {one['rows'][i]['ms']:.2f} ms, state "
+                f"{one['state_bytes']} bytes, {peak_text(one['rows'][i])} on {smi}")
+    print(f"FS512: metrics {two[0]['metrics']}")
+    return {"fsdp512_rank0": two[0]["launches"], "fsdp512_rank1": two[1]["launches"]}
+
+
+def phase_sharded_source(smi, dd2: dict, ranks: dict) -> None:
+    """DS: the device dataset's "sharded" placement over DD2's synthetic
+    4319 x 256² cache and pool on the two gloo ranks (``ds_cases``, run in
+    ``phase_ranks``: ``ranks``): each rank holds ceil(4319 / 2) rows, and
+    the two ranks' batches side by side are bit for bit the replicated
+    source's global batches of the same seed, at DD2's configurations; ms
+    per batch (CUDA events, the exchange included) beside DD2's."""
+    from histogan_tpu_torch.data.device_source import DeviceDataSource
+    from histogan_tpu_torch.tools.dp_step import synthetic_data
+
+    cache, pool = synthetic_data(*RESIDENCY_DATA)
+    total = cache.nbytes + pool.nbytes
+    rows = -(-RESIDENCY_IMAGES // DP_RANKS)
+    row_bytes = total // RESIDENCY_IMAGES
+    configs = ds_cases()
+    for name, c in configs.items():
+        two = ranks[name]
+        check(all(r["shard_cache"] and r["rows"] == rows and r["bytes"] == rows * row_bytes
+                  for r in two), f"DS {name}: each rank holds {rows} rows "
+                                 f"({[(r['shard_cache'], r['rows'], r['bytes']) for r in two]})")
+        with contextlib.redirect_stdout(io.StringIO()):  # the aug notice
+            src = DeviceDataSource(cache, pool, c["batch_size"], c["accum"], seed=3, device=CARD,
+                                   **c.get("options", {}))
+        for i in range(DS_BATCHES):
+            want = next(src)
+            check(all(torch.equal(torch.cat([r["batches"][i][k] for r in two], dim=1),
+                                  v.cpu()) for k, v in want.items()),
+                  f"DS {name}: batch {i} of the two ranks is the replicated source's")
+        ms = [sum(r["ms"][3:]) / len(r["ms"][3:]) for r in two]
+        print(f"DS {name}: sharded over 2 gloo ranks on cuda:0 (budget {c['budget']} bytes a "
+              f"device, {total} in all): {rows} rows and {two[0]['bytes']} bytes a rank; "
+              f"{DS_BATCHES} batches bit for bit the replicated source's; "
+              f"{ms[0]:.3f} / {ms[1]:.3f} ms per batch on ranks 0 / 1 (CUDA events, the "
+              f"exchange through gloo included; batches 3-{DS_BATCHES - 1}) against DD2's "
+              f"replicated {dd2[name]:.3f} on {smi}")
+        del src
+    torch.cuda.empty_cache()
 
 
 def phase_debug(smi) -> None:
@@ -3378,7 +3634,7 @@ def main(argv=None) -> int:
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
     counts_loaders = timed("DD1", phase_loaders, histogram_cuda, smi)
     counts_loaders.update(timed("DD1r", phase_loaders_rehisto, histogram_cuda, smi))
-    timed("DD2", phase_residency, smi)
+    dd2 = timed("DD2", phase_residency, smi)
     counts_d, _, _ = timed("D1", phase_train, histogram_cuda, smi, profile, D_OPTIONS, rate,
                            "train d options")
     counts_d_bf16, _, _ = timed("D1b", phase_train, histogram_cuda, smi, profile,
@@ -3395,7 +3651,14 @@ def main(argv=None) -> int:
     timed("P2", phase_projection_timed, smi, profile)
     counts_projection = timed("P3", phase_projection_clis, histogram_cuda, smi)
     counts_remat = timed("RM", phase_remat, histogram_cuda, smi)
-    counts_dp = timed("DP", phase_data_parallel, histogram_cuda, smi)
+    ranks = timed("ranks", phase_ranks)
+    counts_dp, dp = timed("DP", phase_data_parallel, histogram_cuda, smi, ranks["dp"])
+    counts_dp.update(timed("FS", phase_fsdp, histogram_cuda, smi, dp, ranks["fs"]))
+    del dp
+    counts_dp.update(timed("FS512", phase_fsdp512, histogram_cuda, smi, counts_remat["r512"],
+                           ranks["fs512"]))
+    timed("DS", phase_sharded_source, smi, dd2, ranks["ds"])
+    del ranks
     timed("DB", phase_debug, smi)
     counts_profiler = timed("PF", phase_profiler, histogram_cuda, smi)
     timed("P1", phase_projection_card_vs_cpu, smi)
@@ -3408,12 +3671,13 @@ def main(argv=None) -> int:
           and counts_re["histogram_bwd"] >= 1 and counts_recolor_bf16["histogram_fwd"] >= 1
           and counts_re_bf16["histogram_fwd"] >= 1 and counts_re_bf16["histogram_bwd"] >= 1
           and all(c[k] >= 1 for c in (counts_d, counts_d_bf16, counts_d_re,
-                                      *counts_loaders.values())
+                                      *counts_loaders.values(), *counts_dp.values())
                   for k in ("histogram_fwd", "histogram_bwd")),
           f"K1 on the recolor paths ({counts_recolor}, bf16 {counts_recolor_bf16}), K1 and K2 "
-          f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16}) and on the "
+          f"on the recoloring training paths ({counts_re}, bf16 {counts_re_bf16}), on the "
           f"paths with the D options ({counts_d}, bf16 {counts_d_bf16}, reHistoGAN "
-          f"{counts_d_re}) and on DD1's loader paths ({counts_loaders})")
+          f"{counts_d_re}), on DD1's loader paths ({counts_loaders}) and on every rank of the "
+          f"data-parallel and FSDP paths ({counts_dp})")
     shutil.rmtree(WORK, ignore_errors=True)
     print(f"seconds: total {time.perf_counter() - t_start:.2f}")
 

@@ -275,11 +275,11 @@ def get_args(argv=None):
              "memory — enables larger batches / 512px batch sizes).")
     add("--param_sharding", default="replicated",
         choices=("replicated", "fsdp"),
-        help="State layout over the device mesh: 'replicated' (DP) or "
+        help="State layout over the torchrun ranks: 'replicated' (DP) or "
              "'fsdp' (ZeRO-3-style — params/optimizer/EMA sharded over "
-             "the data axis; the multi-chip path for models whose state "
-             "outgrows one chip, e.g. 512px capacity-16). 'fsdp' is not "
-             "ported yet and raises NotImplementedError.")
+             "the ranks; the multi-GPU path for models whose state "
+             "outgrows one GPU, e.g. 512px capacity-16). One process: "
+             "the same as 'replicated'.")
     add("--calculate_fid_every", type=int, default=None,
         help="Score FID every N steps into results/<name>/fid_scores.txt (0 or "
              "unset: off); pretrained InceptionV3 weights from INCEPTION_WEIGHTS, "

@@ -297,7 +297,9 @@ def get_args(argv=None):
     add("--device_dataset", default="auto", choices=("auto", "true", "false"),
         help="Park the decoded dataset + hist pool in device memory (auto: when "
              "eligible).")
-    add("--param_sharding", default="replicated", choices=("replicated", "fsdp"))
+    add("--param_sharding", default="replicated", choices=("replicated", "fsdp"),
+        help="'fsdp' shards the weights, DiffGrad's state and the EMA over the "
+             "torchrun ranks (ZeRO-3-style); one process: the same as 'replicated'.")
     add("--opt_state_dtype", default=None, choices=("fp32", "bf16"),
         help="Storage dtype of DiffGrad's moments and previous gradient "
              "(default fp32); their update math is fp32.")

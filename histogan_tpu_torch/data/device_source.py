@@ -25,13 +25,19 @@ separable bilinear (``crop_resize_u8``) within 1 uint8 level of PIL's
 crop and resize. For a non-square source the crop window is then limited
 to the cached center square, a slightly narrower content distribution.
 
-Placement: ``device_dataset_mode`` returns ``None`` (stream) or
-``"replicated"``: every rank of a data-parallel run holds the whole cache.
-Every rank draws the global batch's indices from the same seed and
-gathers only its slice (``shard``), as the JAX trainer's source draws the
-global batch on every process; the streaming loader on rank r is seeded
-seed + r and loads the local batch. The JAX module's ``"sharded"``
-placement, which spreads the cache over the devices, is not ported yet.
+Placement: ``device_dataset_mode`` returns ``None`` (stream),
+``"replicated"`` (every rank of a data-parallel run holds the whole
+cache) or ``"sharded"``: the budget is per device, so "auto" replicates a
+cache that fits one device's budget and shards one that fits the world's,
+as the JAX module does. Every rank draws the global batch's indices from
+the same seed and keeps its slice (``shard``), as the JAX trainer's
+source draws the global batch on every process; the streaming loader on
+rank r is seeded seed + r and loads the local batch. Sharded
+(``shard_cache``), rank r holds rows [r * m, (r + 1) * m) of the cache and
+of the pool, m = ceil(n / ranks), zero-padded; the rows of a batch reach
+the rank that needs them in one reduce-scatter of owner-masked rows (exact:
+one rank owns each row), and the pool mix and the crop then run on the
+local rows, so the batches are the replicated source's bit for bit.
 
 The streaming path's batches reach the device through ``take_batch`` and
 ``stage_next_batch``: on a GPU the loader's thread hands out pinned
@@ -43,7 +49,8 @@ copy that reads it has completed, so no buffer is rewritten in flight.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import math
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,35 +79,48 @@ def normalise_flag(flag):
     return flag
 
 
-def should_use_device_dataset(flag, dataset, pool, dataset_aug_prob: float = 0.0) -> bool:
+def should_use_device_dataset(flag, dataset, pool, dataset_aug_prob: float = 0.0,
+                              world_size: int = 1, budget: Optional[int] = None) -> bool:
     """Resolve the trainers' ``device_dataset`` flag ("auto" | True | False).
 
     "auto" holds the data on the device when the decoded uint8 cache
     exists, no per-item augmentation needs the host's decode
-    (``dataset_aug_prob`` 0) and images + pool fit
-    ``DEVICE_DATASET_BUDGET``. An explicit True also takes
+    (``dataset_aug_prob`` 0) and images + pool fit ``world_size`` times
+    the per-device ``budget`` (default ``DEVICE_DATASET_BUDGET``; the JAX
+    module's ``_budget_scale``). An explicit True also takes
     ``dataset_aug_prob`` > 0 (the crop then runs on the device); True with
     no cache or over the budget raises."""
     flag = normalise_flag(flag)
     if flag is False:
         return False
+    total = DEVICE_DATASET_BUDGET if budget is None else budget
+    total *= world_size
     cache = getattr(dataset, "_cache", None)
-    fits = cache is not None and cache.nbytes + pool.pool.nbytes <= DEVICE_DATASET_BUDGET
+    fits = cache is not None and cache.nbytes + pool.pool.nbytes <= total
     if flag == "auto":
         return fits and dataset_aug_prob == 0.0
     if flag is True and not fits:
         raise ValueError("device_dataset=True but the dataset is not eligible (needs a "
-                         f"decoded cache and <= {DEVICE_DATASET_BUDGET >> 20} MiB of "
-                         "images + pool on the device)")
+                         f"decoded cache and <= {total >> 20} MiB of images + pool across "
+                         f"the {world_size} device(s))")
     return bool(flag)
 
 
-def device_dataset_mode(flag, dataset, pool, dataset_aug_prob: float = 0.0) -> Optional[str]:
-    """The cache's placement: ``None`` (stream from the host) or
-    ``"replicated"`` (the whole cache on each rank's device). The JAX
-    package's ``"sharded"`` placement is not ported yet."""
-    return "replicated" if should_use_device_dataset(flag, dataset, pool,
-                                                     dataset_aug_prob) else None
+def device_dataset_mode(flag, dataset, pool, dataset_aug_prob: float = 0.0,
+                        world_size: Optional[int] = None,
+                        budget: Optional[int] = None) -> Optional[str]:
+    """The cache's placement: ``None`` (stream from the host),
+    ``"replicated"`` (the whole cache on each rank's device, when it fits
+    one device's budget) or ``"sharded"`` (1/``world_size`` of the rows on
+    each, when it fits only the world's), as the JAX module's
+    ``device_dataset_mode`` on a mesh of ``world_size`` devices (default
+    the process group's)."""
+    world_size = parallel.world_size() if world_size is None else world_size
+    if not should_use_device_dataset(flag, dataset, pool, dataset_aug_prob, world_size, budget):
+        return None
+    fits_one = dataset._cache.nbytes + pool.pool.nbytes <= (
+        DEVICE_DATASET_BUDGET if budget is None else budget)
+    return "replicated" if fits_one else "sharded"
 
 
 def sample_crop_boxes(rng: np.random.Generator, n: int, size: int,
@@ -173,22 +193,26 @@ def crop_resize_u8(images: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
 
 def make_source(flag, dataset, pool, batch_size: int, accum: int, seed: int,
                 num_workers: Optional[int] = None, self_hist: bool = False,
-                include_g_images: bool = False, device="cuda"):
+                include_g_images: bool = False, device="cuda", budget: Optional[int] = None):
     """The trainers' batch source for ``dataset`` and ``pool``: a
     ``DeviceDataSource`` where ``device_dataset_mode`` places the cache on
     the device (with the dataset's ``aug_prob``, which only an explicit
-    True lets through), else the streaming ``TrainLoader``, whose batches
-    are pinned for a GPU. ``batch_size`` is the global batch: the device
-    source draws it from ``seed`` and gathers this rank's slice, the
-    streaming loader on rank r loads the local batch from seed + r."""
+    True lets through; sharded over the ranks where it says so), else the
+    streaming ``TrainLoader``, whose batches are pinned for a GPU.
+    ``batch_size`` is the global batch: the device source draws it from
+    ``seed`` and gathers this rank's slice, the streaming loader on rank r
+    loads the local batch from seed + r. ``budget``: the per-device budget
+    (default ``DEVICE_DATASET_BUDGET``)."""
     from histogan_tpu_torch.data.dataset import TrainLoader
 
     device = torch.device(device)
     local, shard, shards = parallel.local_shard_info(batch_size)
-    if device_dataset_mode(flag, dataset, pool, dataset.aug_prob):
+    mode = device_dataset_mode(flag, dataset, pool, dataset.aug_prob, budget=budget)
+    if mode:
         return DeviceDataSource(dataset._cache, pool.pool, batch_size, accum, seed=seed,
                                 self_hist=self_hist, include_g_images=include_g_images,
-                                aug_prob=dataset.aug_prob, device=device, shard=(shard, shards))
+                                aug_prob=dataset.aug_prob, device=device, shard=(shard, shards),
+                                shard_cache=mode == "sharded")
     return TrainLoader(dataset, pool, local, accum, seed=seed + shard,
                        prefetch=max(2, num_workers or 0), self_hist=self_hist,
                        include_g_images=include_g_images, pin_memory=device.type == "cuda")
@@ -250,11 +274,15 @@ class DeviceDataSource:
     and ``aug_prob`` > 0 crops on the device (module docstring). With
     ``shard`` (index, count) the draws are the global ``batch_size``'s and
     the batches hold slice ``index`` of ``count`` along the batch axis.
+    With ``shard_cache`` as well, this rank holds only its ``rows`` rows of
+    the cache and the pool, and the rest reach it by a collective: every
+    rank of the process group draws every batch.
     """
 
     def __init__(self, images: np.ndarray, pool: np.ndarray, batch_size: int, accum: int,
                  seed: int = 0, self_hist: bool = False, include_g_images: bool = False,
-                 aug_prob: float = 0.0, device="cuda", shard: Tuple[int, int] = (0, 1)):
+                 aug_prob: float = 0.0, device="cuda", shard: Tuple[int, int] = (0, 1),
+                 shard_cache: bool = False):
         if images.dtype != np.uint8:
             raise ValueError(f"expects the decoded uint8 cache, got {images.dtype}")
         if batch_size % shard[1]:
@@ -274,6 +302,12 @@ class DeviceDataSource:
                   "crop).", flush=True)
         self.image_size = int(images.shape[1])
         self._rng = np.random.default_rng(seed)
+        self.shard_cache = bool(shard_cache) and shard[1] > 1
+        self.rows, self._first = self.n, 0
+        if self.shard_cache:  # rows [first, first + rows), zero-padded past the end
+            self.rows = -(-self.n // shard[1])
+            self._first = shard[0] * self.rows
+            images, pool = (self._own_rows(x) for x in (images, pool))
         # writable copies where the cache is a read-only memory map
         self._images = torch.from_numpy(np.require(images, requirements=["C", "W"])).to(
             self.device)
@@ -298,6 +332,13 @@ class DeviceDataSource:
             self._float_layout.append(("d_crop", 4 * n_items))
             if include_g_images:
                 self._float_layout.append(("g_crop", 4 * n_items))
+
+    def _own_rows(self, x: np.ndarray) -> np.ndarray:
+        """This rank's ``rows`` rows of ``x``, zero-padded past its end."""
+        out = np.zeros((self.rows, *x.shape[1:]), x.dtype)
+        mine = x[self._first:self._first + self.rows]
+        out[:len(mine)] = mine
+        return out
 
     def _draws(self) -> Dict[str, np.ndarray]:
         """The step's index, ratio and crop draws on the host, in the JAX
@@ -336,10 +377,9 @@ class DeviceDataSource:
             off += size
         return d
 
-    def _local(self, draws: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
-        """Each draw's items of this shard's slice of every micro-batch."""
-        index, count = self.shard
-        if count == 1:
+    def _local(self, draws: Dict[str, torch.Tensor], index: int) -> Dict[str, torch.Tensor]:
+        """Each draw's items of shard ``index``'s slice of every micro-batch."""
+        if self.shard[1] == 1:
             return draws
         lo, hi, a, b = index * self.local_batch, (index + 1) * self.local_batch, \
             self.accum, self.batch_size
@@ -351,21 +391,76 @@ class DeviceDataSource:
                 out[k] = v.reshape(a, b, *v.shape[1:])[:, lo:hi].reshape(-1, *v.shape[1:])
         return out
 
-    def _gather_images(self, idx, boxes=None) -> torch.Tensor:
-        rows = self._images.index_select(0, idx)
-        if boxes is not None:
-            rows = crop_resize_u8(rows, boxes)
-        return rows.reshape(self.accum, self.local_batch, *self._images.shape[1:])
+    def _lookups(self) -> List[Tuple[str, str, Optional[int]]]:
+        """(table, draw, row of a pair draw) of each gather of a batch, in
+        the order ``_assemble`` takes them."""
+        def hists(part):
+            return ([("pool", f"{part}_idx", None)] if self.self_hist
+                    else [("pool", f"{part}_pair", 0), ("pool", f"{part}_pair", 1)])
 
-    def _interp_hists(self, pair, r) -> torch.Tensor:
-        r = r[:, None, None, None]
-        h = r * self._pool.index_select(0, pair[0]) \
-            + (1.0 - r) * self._pool.index_select(0, pair[1])
-        return h.reshape(self.accum, self.local_batch, *self._pool.shape[1:])
+        out = [("images", "d_idx", None), *hists("d")]
+        if self.include_g_images:
+            return out + [("images", "g_idx", None), *hists("g")]
+        # the images-less G phase interpolates even in self_hist mode
+        # (TrainLoader._make_batch's branches)
+        return out + [("pool", "g_pair", 0), ("pool", "g_pair", 1)]
 
-    def _self_hists(self, idx) -> torch.Tensor:
-        return self._pool.index_select(0, idx).reshape(self.accum, self.local_batch,
-                                                       *self._pool.shape[1:])
+    def _table(self, name: str) -> torch.Tensor:
+        return self._images if name == "images" else self._pool
+
+    @staticmethod
+    def _index(draws, key: str, row: Optional[int]) -> torch.Tensor:
+        return draws[key] if row is None else draws[key][row]
+
+    def _exchange(self, draws: Dict[str, torch.Tensor]) -> List[torch.Tensor]:
+        """The rows of each lookup for this rank's slice of the batch, from
+        the sharded tables: per destination rank, the rows this rank owns
+        of that rank's items and zeros for the others, as bytes, in one
+        reduce-scatter (sum). One rank owns each row, so the sum is exact."""
+        lookups, count = self._lookups(), self.shard[1]
+        per_rank, shapes = [], []
+        for q in range(count):
+            part, chunks = self._local(draws, q), []
+            for table, key, row in lookups:
+                idx = self._index(part, key, row) - self._first
+                own = (idx >= 0) & (idx < self.rows)
+                t = self._table(table)
+                rows = t.index_select(0, idx.clamp(0, self.rows - 1))
+                rows = torch.where(own.view(-1, *[1] * (t.dim() - 1)), rows, rows.new_zeros(()))
+                chunks.append(rows.reshape(-1).view(torch.uint8))
+                if q == 0:
+                    shapes.append((rows.shape, rows.dtype))
+            per_rank.append(torch.cat(chunks))
+        mine = parallel.reduce_scatter(torch.cat(per_rank))
+        sizes = [math.prod(shape) * torch.empty((), dtype=dtype).element_size()
+                 for shape, dtype in shapes]
+        return [b.view(dtype).view(shape)
+                for b, (shape, dtype) in zip(mine.split(sizes), shapes)]
+
+    def _assemble(self, draws: Dict[str, torch.Tensor], rows) -> Dict[str, torch.Tensor]:
+        """The batch from the local draws and the lookups' rows, in order."""
+        rows = iter(rows)
+        a, b = self.accum, self.local_batch
+
+        def images(crop):
+            x = next(rows)
+            if crop is not None:
+                x = crop_resize_u8(x, crop)
+            return x.reshape(a, b, *x.shape[1:])
+
+        def hists(part):
+            if self.self_hist and part == "d" or self.self_hist and self.include_g_images:
+                h = next(rows)
+            else:
+                r = draws[f"{part}_r"][:, None, None, None]
+                h = r * next(rows) + (1.0 - r) * next(rows)
+            return h.reshape(a, b, *h.shape[1:])
+
+        batch = {"d_images": images(draws.get("d_crop")), "d_hists": hists("d")}
+        if self.include_g_images:
+            batch["g_images"] = images(draws.get("g_crop"))
+        batch["g_hists"] = hists("g")
+        return batch
 
     def __next__(self) -> Dict[str, torch.Tensor]:
         d = self._draws()
@@ -374,25 +469,15 @@ class DeviceDataSource:
                   .astype(np.float32) if self._float_layout else np.zeros((0,), np.float32))
         # two small copies from pageable memory: CUDA stages them at
         # once, so the arrays may go; the host does not wait for the device
-        draws = self._local(self._unpack(
-            torch.from_numpy(ints).to(self.device, non_blocking=True),
-            torch.from_numpy(floats).to(self.device, non_blocking=True)))
-        batch = {"d_images": self._gather_images(draws["d_idx"], draws.get("d_crop"))}
-        if self.self_hist:
-            batch["d_hists"] = self._self_hists(draws["d_idx"])
+        draws = self._unpack(torch.from_numpy(ints).to(self.device, non_blocking=True),
+                             torch.from_numpy(floats).to(self.device, non_blocking=True))
+        local = self._local(draws, self.shard[0])
+        if self.shard_cache:
+            rows = self._exchange(draws)
         else:
-            batch["d_hists"] = self._interp_hists(draws["d_pair"], draws["d_r"])
-        if self.include_g_images:
-            batch["g_images"] = self._gather_images(draws["g_idx"], draws.get("g_crop"))
-            if self.self_hist:
-                batch["g_hists"] = self._self_hists(draws["g_idx"])
-            else:
-                batch["g_hists"] = self._interp_hists(draws["g_pair"], draws["g_r"])
-        else:
-            # the images-less G phase interpolates even in self_hist mode
-            # (TrainLoader._make_batch's branches)
-            batch["g_hists"] = self._interp_hists(draws["g_pair"], draws["g_r"])
-        return batch
+            rows = [self._table(t).index_select(0, self._index(local, k, r))
+                    for t, k, r in self._lookups()]
+        return self._assemble(local, rows)
 
     def __iter__(self):
         return self

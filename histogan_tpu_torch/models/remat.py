@@ -15,7 +15,9 @@ step runs the models through ``torch.func.functional_call`` on bf16
 copies of the fp32 masters (``train/steps.py::cast_module``), and the swap
 is undone before the backward; a recompute that read ``self.weight``
 would see the fp32 masters. So the checkpointed function is a
-``functional_call`` on the block's parameters as captured at its forward.
+``functional_call`` on the block's parameters as captured at its forward:
+under sharded state (``parallel/fsdp.py``) those are the phase's gathered
+full tensors, which the recompute reads again without gathering.
 A block that cannot be checkpointed raises; there is no fallback to the
 plain call.
 """

@@ -15,7 +15,9 @@ global batch, and the step reduces across ranks by hand:
   path length's std over the batch, the variance loss's batch sum) take
   the global batch's value on every rank;
 - ``mean_across_ranks`` averages the metrics and the path length, and
-  ``sum_across_ranks_`` the VQ codebook's batch statistics.
+  ``sum_across_ranks_`` the VQ codebook's batch statistics;
+- ``all_gather`` and ``reduce_scatter`` move flat buffers for the sharded
+  state (``parallel/fsdp.py``) and the sharded device dataset.
 
 So N ranks compute what one process computes on the global batch, as
 GSPMD does, up to the order of the sums. ``DistributedDataParallel`` is not
@@ -147,6 +149,38 @@ def _all_reduce_(tensors: Sequence[torch.Tensor], divide_by: int = 1) -> None:
             flat.div_(divide_by)
         for t, v in zip(group, flat.split([t.numel() for t in group])):
             t.copy_(v.view_as(t))
+
+
+def _host_staged(x: torch.Tensor) -> bool:
+    """Whether a collective on ``x`` copies it through the host: a CUDA
+    tensor on gloo, which does not run every collective on CUDA tensors
+    (``all_gather_into_tensor`` and the reduce-scatter among them)."""
+    return x.is_cuda and dist.get_backend() == "gloo"
+
+
+def all_gather(flat: torch.Tensor) -> torch.Tensor:
+    """Every rank's 1-D ``flat`` (equal sizes), concatenated in rank order:
+    one all-gather; ``flat`` itself at world size 1."""
+    n = world_size()
+    if n == 1:
+        return flat
+    x = flat.cpu() if _host_staged(flat) else flat
+    out = x.new_empty((n * x.numel(),))
+    dist.all_gather_into_tensor(out, x.contiguous())
+    return out.to(flat.device)
+
+
+def reduce_scatter(flat: torch.Tensor) -> torch.Tensor:
+    """Chunk ``rank()`` of the sum over the ranks of the 1-D ``flat``, whose
+    size the ranks divide: one reduce-scatter; ``flat`` itself at world
+    size 1."""
+    n = world_size()
+    if n == 1:
+        return flat
+    x = flat.cpu() if _host_staged(flat) else flat
+    out = x.new_empty((x.numel() // n,))
+    dist.reduce_scatter_tensor(out, x.contiguous())
+    return out.to(flat.device)
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor]) -> None:

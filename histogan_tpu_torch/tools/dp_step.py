@@ -10,24 +10,42 @@ cases, each a dict:
 
 - ``{"kind": "histogan" | "rehisto", "trainer": kwargs, "state": a
   reference-layout state dict or None (the seed's weights), "steps":
-  [{"batch", "draws", "gp", "pl"}]}``: the global batch's batch and draws
-  of each step; every rank builds the trainer, loads the state, and runs
-  ``train_step`` on its slices (``steps.local_draws``,
+  [{"batch", "draws", "gp", "pl"[, "ema"]}]}``: the global batch's batch
+  and draws of each step (and whether it moves the EMA); every rank
+  builds the trainer, loads the state, and runs ``train_step`` on its
+  slices (``steps.local_draws``,
   ``rehisto_steps.local_draws``). The results hold the gradients that
   DiffGrad applied at step ``"grads_step"`` (default the last; None:
-  none).
+  none). ``"trainer"`` may hold ``param_sharding="fsdp"``: the state is
+  then sharded over the ranks, and the state dict and the gradients are
+  gathered. ``"keep"``: the module prefixes whose state the results
+  hold (default all); with ``"digest": True`` they hold each state
+  tensor's sha256 in place of the tensor.
 - ``{"kind": "trainer", "trainer": kwargs, "data": folder, "steps": n}``:
   ``Trainer.train`` n times on the folder, as a user runs it; a string
-  kwarg may name the rank as ``{rank}``.
+  kwarg may name the rank as ``{rank}``; ``"class": "rehisto"`` trains
+  the ``RecoloringTrainer`` instead; ``"load": k`` first loads checkpoint
+  k, and the results then hold what the rank keeps of it (``local``: each
+  module's state dict, ``local_opt``: the optimizers', shards under FSDP);
+- ``{"kind": "source", "data": (n, size, hist_bin, seed), "batch_size",
+  "accum", "batches": k, "budget": bytes, "flag", "options": {...}}``: a
+  device dataset over ``synthetic_data(*data)`` through ``make_source``
+  with that per-device budget (``"sharded"`` where the cache fits only
+  the ranks' budgets together), k batches of it.
 
 A reHistoGAN case also holds ``"hyper"``: the step's alpha, beta, gamma.
 
 Each rank writes ``OUT_DIR/rank<r>.pt``: per case the metrics of each step,
 the state dict after them, the weights right after ``init_GAN``
 (``initial``, trainer cases), the gradients that DiffGrad applied,
-and for step cases each step's milliseconds (host clock, after a device
-sync) and the histogram kernels' launches (``ops/histogram_cuda.py``'s
-counts; 0 on the CPU, which runs their plain versions).
+the bytes of training state the rank holds (``state_bytes``), and for
+step cases each step's milliseconds (host clock, after a device sync),
+on a GPU its peak of ``max_memory_allocated``, whole and apart for the
+phases' forward and backward and for DiffGrad's updates (``peaks``), and
+the histogram kernels' launches (``ops/histogram_cuda.py``'s counts; 0
+on the CPU, which runs their plain versions). A source case writes the
+placement, the rows and bytes the rank holds, its batches (on the CPU)
+and the ms per batch (CUDA events on a GPU).
 ``run_cases`` runs the same cases in one process (the reference).
 """
 
@@ -36,6 +54,8 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import functools
+import hashlib
 import os
 import socket
 import subprocess
@@ -44,6 +64,7 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from histogan_tpu_torch import parallel
@@ -64,13 +85,37 @@ def to_device(x, device):
 
 
 def _applied_grads(state, prefixes) -> dict:
-    """{reference name: the gradient DiffGrad last applied} (on the CPU)."""
+    """{reference name: the gradient DiffGrad last applied} (on the CPU,
+    gathered where the state is sharded)."""
     out = {}
-    for p in prefixes:
-        opt = state.opt_d if p == "D" else state.opt_g
-        for n, w in getattr(state, p).named_parameters():
-            out[f"{p}.{n}"] = opt.state[w]["previous_grad"].detach().cpu()
+    for opt, group in ((state.opt_g, [p for p in prefixes if p != "D"]), (state.opt_d, ["D"])):
+        modules = [getattr(state, p) for p in group]
+        sd = parallel.full_optimizer_state_dict(opt, modules)["state"]
+        names = [f"{p}.{n}" for p, m in zip(group, modules) for n, _ in m.named_parameters()]
+        for i, name in enumerate(names):
+            out[name] = sd[i]["previous_grad"].detach().cpu()
     return out
+
+
+def state_bytes(t) -> int:
+    """The bytes of training state the trainer ``t`` holds on this rank."""
+    s = t.state
+    return parallel.sharded_bytes_per_rank(list(s.modules().values()), [s.opt_g, s.opt_d])
+
+
+@functools.lru_cache(maxsize=1)
+def synthetic_data(n: int, size: int, hist_bin: int, seed: int):
+    """A (n, size, size, 3) uint8 cache and a (n, 3, hist_bin, hist_bin)
+    fp32 pool of histograms, from ``seed``; read-only, as the last call's
+    are kept for the next."""
+    rng = np.random.default_rng(seed)
+    cache = np.frombuffer(bytearray(rng.bytes(n * size * size * 3)), np.uint8).reshape(
+        n, size, size, 3)
+    pool = rng.random((n, 3, hist_bin, hist_bin), dtype=np.float32)
+    pool /= pool.sum(axis=(1, 2, 3), keepdims=True)
+    for x in (cache, pool):
+        x.setflags(write=False)
+    return cache, pool
 
 
 def _sync(device) -> None:
@@ -78,8 +123,17 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _cpu_state(t) -> dict:
-    return {k: v.detach().cpu().clone() for k, v in t.reference_state_dict().items()}
+def _cpu_state(t, keep=None) -> dict:
+    """The reference state dict on the CPU, only the prefixes of ``keep``
+    (all for None)."""
+    return {k: v.detach().cpu().clone() for k, v in t.reference_state_dict().items()
+            if keep is None or k.split(".")[0] in keep}
+
+
+def _digest(t) -> dict:
+    """{name: sha256 of the tensor's bytes} of the reference state dict."""
+    return {k: hashlib.sha256(v.detach().cpu().reshape(-1).view(torch.uint8).numpy()).hexdigest()
+            for k, v in t.reference_state_dict().items()}
 
 
 def _run_steps(case: dict, device) -> dict:
@@ -97,24 +151,49 @@ def _run_steps(case: dict, device) -> dict:
     histogram_cuda.launches = histogram_cuda.bwd_launches = 0
     prefixes = ("ED", "H", "G", "D") if rehisto else ("S", "H", "G", "D")
     grads_step = case.get("grads_step", len(case["steps"]) - 1)
-    metrics, ms, grads = [], [], None
-    for s in case["steps"]:
-        batch = {k: parallel.local_slice(v, dim=1).to(t.device) for k, v in s["batch"].items()}
-        draws = to_device(copy.deepcopy(s["draws"]), t.device)
-        _sync(t.device)
-        t0 = time.perf_counter()
-        if rehisto:
-            m = rehisto_steps.train_step(t.state, batch, rehisto_steps.local_draws(draws), t.cfg,
-                                         s["gp"], **case["hyper"])
-        else:
-            m = steps.train_step(t.state, batch, steps.local_draws(draws), t.cfg, s["gp"],
-                                 s["pl"])
-        _sync(t.device)
-        ms.append(1e3 * (time.perf_counter() - t0))
-        metrics.append({k: v.item() for k, v in m.items()})
-        if len(metrics) - 1 == grads_step:
-            grads = _applied_grads(t.state, prefixes)
-    out = {"metrics": metrics, "state": _cpu_state(t), "ms": ms,
+    metrics, ms, grads, peaks = [], [], None, []
+    cuda = t.device.type == "cuda"
+    update, marks = steps._update, []
+
+    def spied(*args):  # the peaks of the phases' forward and backward, and of the updates
+        marks.append(("phase", torch.cuda.max_memory_allocated(t.device)))
+        torch.cuda.reset_peak_memory_stats(t.device)
+        update(*args)
+        marks.append(("update", torch.cuda.max_memory_allocated(t.device)))
+        torch.cuda.reset_peak_memory_stats(t.device)
+
+    if cuda:
+        steps._update = rehisto_steps._update = spied
+    try:
+        for s in case["steps"]:
+            batch = {k: parallel.local_slice(v, dim=1).to(t.device) for k, v in s["batch"].items()}
+            draws = to_device(copy.deepcopy(s["draws"]), t.device)
+            _sync(t.device)
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(t.device)
+                marks.clear()
+            t0 = time.perf_counter()
+            if rehisto:
+                m = rehisto_steps.train_step(t.state, batch, rehisto_steps.local_draws(draws),
+                                             t.cfg, s["gp"], **case["hyper"])
+            else:
+                m = steps.train_step(t.state, batch, steps.local_draws(draws), t.cfg, s["gp"],
+                                     s["pl"], s.get("ema", False))
+            _sync(t.device)
+            ms.append(1e3 * (time.perf_counter() - t0))
+            if cuda:
+                phase = max(v for k, v in marks if k == "phase")
+                upd = max(v for k, v in marks if k == "update")
+                peaks.append({"peak": max(phase, upd, torch.cuda.max_memory_allocated(t.device)),
+                              "peak_phases": phase, "peak_updates": upd})
+            metrics.append({k: v.item() for k, v in m.items()})
+            if len(metrics) - 1 == grads_step:
+                grads = _applied_grads(t.state, prefixes)
+    finally:
+        steps._update = rehisto_steps._update = update
+    state = _digest(t) if case.get("digest") else _cpu_state(t, case.get("keep"))
+    out = {"metrics": metrics, "state": state, "ms": ms, "peaks": peaks,
+           "state_bytes": state_bytes(t),
            "launches": {"histogram_fwd": histogram_cuda.launches,
                         "histogram_bwd": histogram_cuda.bwd_launches}}
     if grads is not None:
@@ -123,26 +202,72 @@ def _run_steps(case: dict, device) -> dict:
 
 
 def _run_trainer(case: dict, device) -> dict:
+    from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
     from histogan_tpu_torch.train.trainer import Trainer
 
+    rehisto = case.get("class") == "rehisto"
     kwargs = {k: v.format(rank=parallel.rank()) if isinstance(v, str) else v
               for k, v in case["trainer"].items()}
-    t = Trainer(device=device, **kwargs)
+    t = (RecoloringTrainer if rehisto else Trainer)(device=device, **kwargs)
     t.init_GAN()
-    initial = _cpu_state(t)
-    t.set_data_src(case["data"])
-    try:
-        metrics = [t.train() for _ in range(case["steps"])]
-    finally:
-        t.close()
-    return {"metrics": metrics, "state": _cpu_state(t), "initial": initial,
-            "grads": _applied_grads(t.state, ("S", "H", "G", "D"))}
+    out = {}
+    if case.get("load") is not None:
+        t.load(case["load"])
+        s = t.state
+        out["local"] = {f"{p}.{k}": v.detach().cpu().clone() for p, m in s.modules().items()
+                        for k, v in m.state_dict().items()}
+        out["local_opt"] = to_device(copy.deepcopy({"opt_g": s.opt_g.state_dict(),
+                                                    "opt_d": s.opt_d.state_dict()}), "cpu")
+    out["initial"] = _cpu_state(t)
+    out["metrics"] = []
+    if case["steps"]:
+        t.set_data_src(case["data"])
+        try:
+            out["metrics"] = [t.train() for _ in range(case["steps"])]
+        finally:
+            t.close()
+    prefixes = ("ED", "H", "G", "D") if rehisto else ("S", "H", "G", "D")
+    return {**out, "state": _cpu_state(t), "grads": _applied_grads(t.state, prefixes),
+            "state_bytes": state_bytes(t)}
+
+
+def _run_source(case: dict, device) -> dict:
+    import types
+
+    from histogan_tpu_torch.data import device_source
+
+    cache, pool = synthetic_data(*case["data"])
+    opts = dict(case.get("options", {}))
+    aug = opts.pop("aug_prob", 0.0)
+    ds = types.SimpleNamespace(_cache=cache, aug_prob=aug)
+    src = device_source.make_source(case.get("flag", True), ds, types.SimpleNamespace(pool=pool),
+                                    case["batch_size"], case["accum"], seed=case.get("seed", 3),
+                                    device=device, budget=case["budget"], **opts)
+    del cache, pool
+    dev = torch.device(device)
+    batches, ms = [], []
+    for _ in range(case["batches"]):
+        _sync(dev)
+        if dev.type == "cuda":
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            batch = next(src)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            batch = next(src)
+            ms.append(1e3 * (time.perf_counter() - t0))
+        batches.append({k: v.cpu().clone() for k, v in batch.items()})
+    return {"shard_cache": src.shard_cache, "rows": src.rows, "ms": ms, "batches": batches,
+            "bytes": src._images.numel() + src._pool.numel() * src._pool.element_size()}
 
 
 def run_cases(cases: List[dict], device) -> List[dict]:
     """Each case's results on this rank (or in this one process)."""
-    return [_run_trainer(c, device) if c["kind"] == "trainer" else _run_steps(c, device)
-            for c in cases]
+    run = {"trainer": _run_trainer, "source": _run_source}
+    return [run.get(c["kind"], _run_steps)(c, device) for c in cases]
 
 
 def free_port() -> int:

@@ -14,7 +14,11 @@ trusts over the command-line flags on load (histoGAN/histoGAN.py:806-825,
 so a resume continues the same run (the reference loses the optimizer
 state). It is written to a temporary file and renamed into place. In a
 data-parallel run the trainers save on rank 0 and every rank waits at a
-barrier until the file is in place; every rank loads it.
+barrier until the file is in place; every rank loads it. Under
+``param_sharding='fsdp'`` every rank gathers the full state first and the
+file is the full, unsharded state (as the JAX package's
+``train/checkpoint.py:40-58``): it loads under either layout and at any
+world size, each rank keeping its slices.
 """
 
 from __future__ import annotations

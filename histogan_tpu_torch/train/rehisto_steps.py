@@ -34,7 +34,9 @@ see fp32 input (``generated32``). On the CPU the D phase runs under
 
 Over several ranks the step reduces as ``train/steps.py`` does: the
 Hellinger and variance losses read the global batch's sums, each phase's
-gradients and the metrics are averaged across the ranks.
+gradients and the metrics are averaged across the ranks; with the state
+sharded each phase gathers the full parameters of ED, H, G and D once and
+reduce-scatters its gradients onto the shards, as ``train/steps.py`` does.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from torch import nn
 from histogan_tpu_torch import parallel
 from histogan_tpu_torch.ops import filters, losses
 from histogan_tpu_torch.ops.histogram import histogram_feature
+from histogan_tpu_torch.parallel import fsdp
 from histogan_tpu_torch.train.state import ReHistoGANState
 from histogan_tpu_torch.train.steps import (
     _accumulate, _update, cast_models, cast_module, compute_dtype, cpu_bf16_double_backward_guard,
@@ -157,10 +160,12 @@ def g_loss(models: RecolorModels, image_batch: torch.Tensor, hist_batch: torch.T
 def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
             apply_gp: bool) -> Dict[str, torch.Tensor]:
     dtype = compute_dtype(cfg)
+    *full_g, full_d = fsdp.gather_parameters([state.ED, state.H, state.G, state.D])
     with torch.no_grad():
-        models = cast_models(RecolorModels(state.ED, state.H, state.G, None), dtype)
-    D = cast_module(state.D, dtype)
-    params = list(state.D.parameters())
+        models = cast_models(RecolorModels(state.ED, state.H, state.G, None), dtype,
+                             [*full_g, None])
+    D = cast_module(state.D, dtype, full_d)
+    params = fsdp.phase_parameters([state.D], [full_d])
     accum = cfg.gradient_accumulate_every
     grads, divs, qs, gp = None, [], [], None
     for a in range(accum):
@@ -175,7 +180,8 @@ def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
         qs.append(q.detach())
-    _update(state.opt_d, params, grads, accum)
+    del models, D, params, full_g, full_d  # the gathered parameters go before the update
+    _update(state.opt_d, list(state.D.parameters()), grads, accum)
     return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.stack(qs).mean(),
             "gp_loss": gp.detach()}
 
@@ -183,12 +189,14 @@ def d_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
 def g_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHistoDraws, cfg,
             alpha: float, beta: float, gamma: float) -> Dict[str, torch.Tensor]:
     dtype = compute_dtype(cfg)
-    models = cast_models(RecolorModels(state.ED, state.H, state.G, None), dtype)
+    gen = (state.ED, state.H, state.G)
+    *full_g, full_d = fsdp.gather_parameters([*gen, state.D])
+    models = cast_models(RecolorModels(*gen, None), dtype, [*full_g, None])
     with torch.no_grad():  # no gradient is taken on D here
-        models = models._replace(D=cast_module(state.D, dtype))
-    params = state.g_params()
+        models = models._replace(D=cast_module(state.D, dtype, full_d))
+    params = fsdp.phase_parameters(gen, full_g)
     # with fixed_gan_weights only ED's gradient is taken; H and G get zeros
-    trainable = list(state.ED.parameters()) if cfg.fixed_gan_weights else params
+    trainable = params[:len(list(state.ED.parameters()))] if cfg.fixed_gan_weights else params
     gauss = filters.gaussian_kernel(GAUSS_SIZE, GAUSS_SIGMA).to(params[0].device)
     accum = cfg.gradient_accumulate_every
     grads, terms = None, []
@@ -202,7 +210,8 @@ def g_phase(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: ReHis
                                                        materialize_grads=True))
         terms.append(torch.stack([p.detach() for p in parts]))
     grads = grads + [torch.zeros_like(p) for p in params[len(trainable):]]
-    _update(state.opt_g, params, grads, accum)
+    del models, params, trainable, full_g, full_d
+    _update(state.opt_g, state.g_params(), grads, accum)
     means = torch.stack(terms).mean(dim=0)
     return dict(zip(("g_loss", "h_loss", "r_loss", "var_loss"), means))
 

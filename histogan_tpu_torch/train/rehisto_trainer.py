@@ -34,7 +34,9 @@ checkpoints the encoder-decoder's and the head's blocks, ``num_devices``
 trains over the ``torchrun`` ranks with ``batch_size`` the global batch,
 rank 0 alone writes checkpoints, grids and ``metrics.jsonl`` (every rank
 recolors in ``evaluate``: its noise comes from the step's generator), and
-``param_sharding='fsdp'`` is refused with NotImplementedError.
+``param_sharding='fsdp'`` shards the state over the ranks as in
+``train/trainer.py``: ``save``, ``export_pt``, ``recolor`` (so
+``evaluate``) and ``load_histogan_head`` gather first, on every rank.
 """
 
 from __future__ import annotations
@@ -60,7 +62,7 @@ from histogan_tpu_torch.train.rehisto_steps import RecolorModels, draw_step, rec
     train_step
 from histogan_tpu_torch.train.state import ReHistoGANState
 from histogan_tpu_torch.train.steps import cast_models, compute_dtype
-from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice, refuse_fsdp
+from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice
 from histogan_tpu_torch.utils.config import ReHistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
@@ -87,10 +89,11 @@ class RecoloringTrainer:
                  remat=False, num_workers=None, device="cuda"):
         _check_choice("precision", precision, ("fp32", "bf16"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
-        refuse_fsdp(param_sharding)
+        _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
         refuse_bf16_vq(precision, image_size, fq_layers)
         self.num_devices = parallel.resolve_num_devices(num_devices)
         parallel.local_shard_info(batch_size)  # the ranks must divide the batch
+        self.sharded = param_sharding == "fsdp" and self.num_devices > 1
         self.cfg = ReHistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
@@ -133,7 +136,8 @@ class RecoloringTrainer:
     # ------------------------------------------------------------ setup
     def init_GAN(self) -> None:
         """ED, H, G and D, and a DiffGrad(lr, betas=(0.5, 0.9)) for ED/H/G
-        and one for D, their state in ``opt_state_dtype``."""
+        and one for D, their state in ``opt_state_dtype``; sharded first
+        under FSDP."""
         cfg = self.cfg
         init_gen = torch.Generator().manual_seed(self.seed)
         modules = [
@@ -148,6 +152,9 @@ class RecoloringTrainer:
         ]
         live = {k: reset_parameters_(m, init_gen).to(self.device)
                 for k, m in zip(LIVE, modules)}
+        if self.sharded:
+            for m in live.values():
+                parallel.shard_module_(m)
         opt = dict(lr=cfg.learning_rate, betas=(0.5, 0.9), state_dtype=self.opt_state_dtype)
         self.state = ReHistoGANState(
             **live,
@@ -168,7 +175,8 @@ class RecoloringTrainer:
         return self.state.modules()
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights in the flat reference layout (ED, H, G, D)."""
+        """The weights in the flat reference layout (ED, H, G, D); under
+        FSDP gathered, on every rank."""
         return self.state.reference_state_dict()
 
     def load_state_dict(self, sd) -> List[str]:
@@ -183,7 +191,7 @@ class RecoloringTrainer:
                                  f"trainer is configured with {flag}={have}")
         parts, others = convert.split_by_prefix(sd, LIVE)
         for prefix, module in self.models().items():
-            module.load_state_dict(parts[prefix], strict=True)
+            parallel.load_state_dict_(module, parts[prefix])  # a shard's slice under FSDP
         return others
 
     def load_pt(self, path) -> List[str]:
@@ -191,24 +199,36 @@ class RecoloringTrainer:
         return self.load_state_dict(convert.load_reference_pt(path))
 
     def export_pt(self, path) -> int:
-        """Write the weights as a reference-layout ``.pt`` (``--export_pt``);
-        returns the number of tensors."""
+        """Write the weights as a reference-layout ``.pt`` (``--export_pt``;
+        rank 0 writes, every rank gathers under FSDP); returns the number
+        of tensors."""
         sd = {k: v.detach().cpu().contiguous() for k, v in self.reference_state_dict().items()}
-        torch.save(sd, path)
+        if parallel.is_main():
+            torch.save(sd, path)
+        parallel.barrier()
         return len(sd)
 
     @torch.no_grad()
     def load_histogan_head(self, histogan_trainer) -> None:
         """Transplant a HistoGAN Trainer's EMA head: GE.blocks[n-2] and
         [n-1] become G.blocks.0 and .1, HE becomes H
-        (rehistoGAN.py:355-357); a bf16 EMA is widened."""
+        (rehistoGAN.py:355-357); a bf16 EMA is widened. Either side may be
+        sharded: both are gathered (on every rank) and the result sliced."""
         if self.state is None:
             raise RuntimeError("init_GAN first")
-        donor = histogan_trainer.state
+        donor = histogan_trainer.state.reference_state_dict()
         n = histogan_trainer.cfg.num_layers
-        for dst, src in ((self.G.blocks[0], donor.GE.blocks[n - 2]),
-                         (self.G.blocks[1], donor.GE.blocks[n - 1]), (self.H, donor.HE)):
-            dst.load_state_dict(src.state_dict(), strict=True)
+        sd = self.reference_state_dict()
+        pairs = (("G.blocks.0.", f"GE.blocks.{n - 2}."), ("G.blocks.1.", f"GE.blocks.{n - 1}."),
+                 ("H.", "HE."))
+        for dst, src in pairs:
+            mine = {k for k in sd if k.startswith(dst)}
+            theirs = {k for k in donor if k.startswith(src)}
+            if {k[len(dst):] for k in mine} != {k[len(src):] for k in theirs}:
+                raise RuntimeError(f"the head transplant's {src} does not fit {dst}")
+            for k in mine:
+                sd[k] = donor[src + k[len(dst):]]
+        self.load_state_dict(sd)
 
     # ------------------------------------------------------------- data
     def set_data_src(self, folder: str, sampling: bool = True) -> None:
@@ -300,8 +320,9 @@ class RecoloringTrainer:
         if noise is None:
             noise = torch.rand((*image_batch.shape[:3], 1), generator=self.gen,
                                device=self.device)
-        models = cast_models(RecolorModels(self.ED, self.H, self.G, None),
-                             compute_dtype(self.cfg))
+        gen = (self.ED, self.H, self.G)
+        full = parallel.gather_parameters(gen)  # a collective under FSDP
+        models = cast_models(RecolorModels(*gen, None), compute_dtype(self.cfg), [*full, None])
         out = recolor_forward(models, image_batch.permute(0, 3, 1, 2), hist_batch,
                               torch.as_tensor(noise, device=self.device), self.cfg)
         return torch.clamp(out.permute(0, 2, 3, 1), 0.0, 1.0)
@@ -396,11 +417,14 @@ class RecoloringTrainer:
         """Rank 0 writes checkpoint ``num`` and the config; every rank
         leaves once it is on disk."""
         s = self.state
-        if parallel.is_main():
-            self.store.save({
+        if self.sharded or parallel.is_main():  # under FSDP every rank gathers
+            payload = {
                 "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
-                "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(), "step": s.step,
-            }, num)
+                "opt_g": parallel.full_optimizer_state_dict(s.opt_g, [s.ED, s.H, s.G]),
+                "opt_d": parallel.full_optimizer_state_dict(s.opt_d, [s.D]), "step": s.step,
+            }
+        if parallel.is_main():
+            self.store.save(payload, num)
             self.cfg.write_config(self.store.config_path)
         parallel.barrier()
 
@@ -421,8 +445,9 @@ class RecoloringTrainer:
         self.steps = name * self.cfg.save_every
         payload = self.store.restore(name)
         self.load_state_dict(payload["GAN"])
-        self.state.opt_g.load_state_dict(payload["opt_g"])
-        self.state.opt_d.load_state_dict(payload["opt_d"])
+        s = self.state
+        parallel.load_optimizer_state_dict_(s.opt_g, payload["opt_g"], [s.ED, s.H, s.G])
+        parallel.load_optimizer_state_dict_(s.opt_d, payload["opt_d"], [s.D])
         self.state.step = int(payload["step"])
         return 0
 

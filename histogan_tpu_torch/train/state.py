@@ -9,6 +9,13 @@ a reset is a round-to-nearest cast of the live weights, an update is
 computed in fp32 and stored by stochastic rounding (``ops/rounding.py``)
 with bits from ``ema_gen``, a generator that nothing else draws from, so
 the step's own draws do not depend on ``ema_dtype``.
+
+Under ``param_sharding='fsdp'`` over several ranks (``parallel/fsdp.py``)
+the modules hold this rank's shards of the parameters, and DiffGrad's
+state follows them. ``reference_state_dict`` then gathers, on every rank;
+``update_ema`` and ``reset_ema`` run on the shards, elementwise, and the
+bf16 EMA draws its rounding bits in each parameter's full shape and keeps
+its slice of them, so the EMA does not depend on the layout.
 """
 
 from __future__ import annotations
@@ -19,8 +26,9 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
-from histogan_tpu_torch.ops.rounding import stochastic_round_list
+from histogan_tpu_torch.ops.rounding import random_bits, stochastic_round_bf16
 from histogan_tpu_torch.optim.diffgrad import DiffGrad
+from histogan_tpu_torch.parallel import fsdp
 
 # modules by their reference state-dict prefix: live S/H/G/D, EMA SE/HE/GE
 LIVE = ("S", "H", "G", "D")
@@ -60,9 +68,9 @@ class HistoGANState:
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
         """The weights in the flat reference layout (``GAN.state_dict()``),
-        each in its stored dtype."""
-        return {f"{prefix}.{k}": v for prefix, m in self.modules().items()
-                for k, v in m.state_dict().items()}
+        each in its stored dtype; sharded ones gathered (every rank calls
+        it)."""
+        return fsdp.unshard_state_dict(self.modules())
 
     @torch.no_grad()
     def reset_ema(self) -> None:
@@ -84,7 +92,12 @@ class HistoGANState:
             e32 = [x.float() for x in e]
             torch._foreach_mul_(e32, beta)
             torch._foreach_add_(e32, p, alpha=1.0 - beta)
-            torch._foreach_copy_(e, stochastic_round_list(e32, self.ema_gen))
+            # one draw per tensor in list order, in its full shape
+            leaves = fsdp.param_leaves([ema])
+            torch._foreach_copy_(e, [
+                stochastic_round_bf16(x, fsdp.local_part(random_bits(
+                    x.shape if leaf is None else leaf.shape, self.ema_gen, x.device), leaf))
+                for x, leaf in zip(e32, leaves)])
 
 
 @dataclasses.dataclass
@@ -111,6 +124,6 @@ class ReHistoGANState:
         return [p for k in ("ED", "H", "G") for p in getattr(self, k).parameters()]
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
-        """The weights in the flat reference layout (ED, H, G, D)."""
-        return {f"{prefix}.{k}": v for prefix, m in self.modules().items()
-                for k, v in m.state_dict().items()}
+        """The weights in the flat reference layout (ED, H, G, D); sharded
+        ones gathered (every rank calls it)."""
+        return fsdp.unshard_state_dict(self.modules())

@@ -46,6 +46,14 @@ its slice, the losses that are not per-sample means read global sums
 averaged across the ranks before DiffGrad, the path length's mean before
 ``pl_mean`` moves, and the returned metrics too, so that every rank sees
 the same NaN verdict. At one rank each of these is the identity.
+
+With the state sharded (``param_sharding='fsdp'``, ``parallel/fsdp.py``)
+each phase first gathers the full parameters of the modules it runs, once
+(the D phase S, H, G and D; the G phase S, H, G and D), and runs the
+unchanged phase code on them through ``functional_call``; the gradients
+are taken with respect to the gathered tensors, and ``_update``
+reduce-scatters them onto the shards, which DiffGrad steps. The sums are
+those of data parallel, so at two ranks the step is data parallel's.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ from histogan_tpu_torch import parallel
 from histogan_tpu_torch.ops import losses
 from histogan_tpu_torch.ops.diffaugment import AugDraws, aug_wrapper, draw_aug
 from histogan_tpu_torch.ops.histogram import histogram_feature
+from histogan_tpu_torch.parallel import fsdp
 from histogan_tpu_torch.train.state import HistoGANState
 
 EPS = 1e-8  # histoGAN/histoGAN.py:53
@@ -81,14 +90,19 @@ def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if getattr(cfg, "precision", "fp32") == "bf16" else torch.float32
 
 
-def cast_module(module: nn.Module, dtype: torch.dtype) -> Callable:
+def cast_module(module: nn.Module, dtype: torch.dtype,
+                params: Optional[Dict[str, torch.Tensor]] = None) -> Callable:
     """``module`` run on its parameters cast to ``dtype`` (``cast_tree``,
     steps.py:106-111): the module itself at fp32, else a
     ``functional_call`` on copies cast once here. Under grad mode the
-    casts carry fp32 gradients back to the parameters."""
-    if dtype == torch.float32:
-        return module
-    params = {n: p.to(dtype) for n, p in module.named_parameters()}
+    casts carry fp32 gradients back to the parameters. ``params`` (the
+    gathered full parameters of a sharded module) replace the module's
+    own."""
+    if params is None:
+        if dtype == torch.float32:
+            return module
+        params = dict(module.named_parameters())
+    params = {n: p.to(dtype) for n, p in params.items()}
     return lambda *args, **kwargs: torch.func.functional_call(module, params, args, kwargs)
 
 
@@ -110,11 +124,14 @@ def cpu_bf16_double_backward_guard(device: torch.device, dtype: torch.dtype):
         torch.backends.mkldnn.enabled = was
 
 
-def cast_models(models, dtype: torch.dtype):
+def cast_models(models, dtype: torch.dtype, params=None):
     """``cast_module`` of each module of ``models`` (a ``Models`` or
     another NamedTuple of modules), in a tuple of its type; a None stays
-    None."""
-    return type(models)(*(None if m is None else cast_module(m, dtype) for m in models))
+    None. ``params``: per module its gathered parameters or None
+    (``fsdp.gather_parameters``)."""
+    params = params or [None] * len(models)
+    return type(models)(*(None if m is None else cast_module(m, dtype, p)
+                          for m, p in zip(models, params)))
 
 
 @dataclasses.dataclass
@@ -329,11 +346,13 @@ def _accumulate(total, grads):
 
 
 def _update(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads, accum: int) -> None:
-    """One optimizer step on the mean of the summed micro-batch gradients,
-    averaged across the ranks."""
+    """One optimizer step of ``params`` (the optimizer's: shards of a
+    sharded module) on the mean of the summed micro-batch gradients
+    ``grads`` (full size), averaged across the ranks, a shard's
+    reduce-scattered onto it (``grads`` then holds the shard's)."""
     if accum > 1:
         torch._foreach_div_(grads, float(accum))
-    parallel.all_reduce_mean_(grads)
+    fsdp.reduce_gradients_(params, grads)
     for p, g in zip(params, grads):
         p.grad = g
     opt.step()
@@ -344,10 +363,11 @@ def _update(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads, a
 def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDraws, cfg,
             apply_gp: bool) -> Dict[str, torch.Tensor]:
     dtype = compute_dtype(cfg)
+    *full_g, full_d = fsdp.gather_parameters([state.S, state.H, state.G, state.D])
     with torch.no_grad():
-        gen = cast_models(Models(state.S, state.H, state.G, None), dtype)
-    D = cast_module(state.D, dtype)
-    params = list(state.D.parameters())
+        gen = cast_models(Models(state.S, state.H, state.G, None), dtype, [*full_g, None])
+    D = cast_module(state.D, dtype, full_d)
+    params = fsdp.phase_parameters([state.D], [full_d])
     accum = cfg.gradient_accumulate_every
     grads, divs, qs, gp = None, [], [], None
     for a in range(accum):
@@ -359,7 +379,8 @@ def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         divs.append(div.detach())
         qs.append(q.detach())
-    _update(state.opt_d, params, grads, accum)
+    del gen, D, params, full_g, full_d  # the gathered parameters go before the update
+    _update(state.opt_d, list(state.D.parameters()), grads, accum)
     return {"d_loss": torch.stack(divs).mean(), "q_loss": torch.stack(qs).mean(),
             "gp_loss": gp.detach()}
 
@@ -367,10 +388,12 @@ def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
 def g_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDraws, cfg,
             apply_pl: bool) -> Dict[str, torch.Tensor]:
     dtype = compute_dtype(cfg)
-    models = cast_models(Models(state.S, state.H, state.G, None), dtype)
+    gen = (state.S, state.H, state.G)
+    *full_g, full_d = fsdp.gather_parameters([*gen, state.D])
+    models = cast_models(Models(*gen, None), dtype, [*full_g, None])
     with torch.no_grad():  # no gradient is taken on D here
-        models = models._replace(D=cast_module(state.D, dtype))
-    params = state.g_params()
+        models = models._replace(D=cast_module(state.D, dtype, full_d))
+    params = fsdp.phase_parameters(gen, full_g)
     accum = cfg.gradient_accumulate_every
     grads, advs, hists, avg_pl = None, [], [], None
     for a in range(accum):
@@ -381,7 +404,8 @@ def g_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDra
         grads = _accumulate(grads, torch.autograd.grad(loss, params))
         advs.append(adv.detach())
         hists.append(hist.detach())
-    _update(state.opt_g, params, grads, accum)
+    del models, params, full_g, full_d
+    _update(state.opt_g, state.g_params(), grads, accum)
     if apply_pl:  # the last micro-batch's mean path length, as the JAX scan carries it
         avg_pl = parallel.mean_across_ranks(avg_pl.detach())
         state.pl_mean = torch.where(torch.isnan(avg_pl), state.pl_mean,

@@ -52,10 +52,16 @@ every rank draws the same weights from the same CPU generator. Only rank
 0 writes checkpoints, sample grids, ``metrics.jsonl`` and
 ``fid_scores.txt`` and runs FID; the others wait at a barrier after it.
 Every rank samples in ``evaluate`` (its draws come from the training
-generator, which must move alike on every rank). ``param_sharding='fsdp'``
-(sharded state) is refused with NotImplementedError: the port takes
-gradients with ``torch.autograd.grad``, so its FSDP must be hand-written,
-and it is not yet.
+generator, which must move alike on every rank).
+
+``param_sharding='fsdp'`` over several ranks shards the training state
+(``parallel/fsdp.py``): each rank holds its slice of the fp32 masters, of
+DiffGrad's state and of the EMA, and the step gathers and reduce-scatters
+(``train/steps.py``). ``save``, ``export_pt``, ``evaluate``,
+``generate_truncated``'s callers and FID gather the full weights first, on
+every rank, and then rank 0 writes or scores; a checkpoint is the full
+state, which loads under either layout and any world size. At one process
+'fsdp' is the replicated path.
 
 ``enable_profiling(start, count)`` writes a torch.profiler Chrome trace of
 steps [start, start + count) (``utils/logging.py::ProfilerHook``).
@@ -68,7 +74,7 @@ import dataclasses
 import math
 import shutil
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -83,7 +89,7 @@ from histogan_tpu_torch.optim.diffgrad import DiffGrad
 from histogan_tpu_torch.train import convert
 from histogan_tpu_torch.train.checkpoint import CheckpointStore
 from histogan_tpu_torch.train.state import EMA, LIVE, HistoGANState
-from histogan_tpu_torch.train.steps import draw_step, train_step
+from histogan_tpu_torch.train.steps import cast_module, draw_step, train_step
 from histogan_tpu_torch.utils.config import HistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
@@ -111,18 +117,6 @@ def _check_choice(name: str, value, allowed) -> None:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
 
 
-def refuse_fsdp(param_sharding: str) -> None:
-    """ValueError for an unknown layout, NotImplementedError for 'fsdp'."""
-    _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
-    if param_sharding == "fsdp":
-        raise NotImplementedError(
-            "param_sharding='fsdp': sharded state is not ported to the PyTorch package yet. "
-            "The port takes gradients with torch.autograd.grad (the gradient penalty is a "
-            "double backward), so FSDP2's reduce-scatter hooks on .grad would never fire and "
-            "its FSDP must be hand-written (parallel/fsdp.py, with the device dataset's "
-            "'sharded' placement). Use param_sharding='replicated' (data parallel)")
-
-
 class Trainer:
     def __init__(self, name="default", results_dir="results", models_dir="models",
                  image_size=128, network_capacity=16, transparent=False,
@@ -140,10 +134,11 @@ class Trainer:
         _check_choice("precision", precision, ("fp32", "bf16"))
         _check_choice("opt_state_dtype", opt_state_dtype, (None, "fp32", "bf16"))
         _check_choice("ema_dtype", ema_dtype, (None, "fp32", "bf16"))
-        refuse_fsdp(param_sharding)
+        _check_choice("param_sharding", param_sharding, ("replicated", "fsdp"))
         refuse_bf16_vq(precision, image_size, fq_layers)
         self.num_devices = parallel.resolve_num_devices(num_devices)
         parallel.local_shard_info(batch_size)  # the ranks must divide the batch
+        self.sharded = param_sharding == "fsdp" and self.num_devices > 1
         self.cfg = HistoGANConfig(
             image_size=image_size, network_capacity=network_capacity,
             latent_dim=latent_dim, style_depth=style_depth, transparent=transparent,
@@ -205,7 +200,7 @@ class Trainer:
         """S/H/G/D, the EMA copies SE/HE/GE (reset_parameter_averaging
         starts the EMA as a copy, cast to ``ema_dtype``) and a
         DiffGrad(lr, betas=(0.5, 0.9)) for each side, its state in
-        ``opt_state_dtype``."""
+        ``opt_state_dtype``; sharded first under FSDP."""
         cfg = self.cfg
         init_gen = torch.Generator().manual_seed(self.seed)
         S = reset_parameters_(StyleVectorizer(cfg.latent_dim, cfg.style_depth), init_gen)
@@ -220,6 +215,9 @@ class Trainer:
                           cfg.fq_dict_size, cfg.attn_layers, cfg.transparent, remat=cfg.remat),
             init_gen)
         live = {k: m.to(self.device) for k, m in zip(LIVE, (S, H, G, D))}
+        if self.sharded:
+            for m in live.values():
+                parallel.shard_module_(m)
         ema = {e: copy.deepcopy(live[k]).to(self.ema_dtype).eval().requires_grad_(False)
                for e, k in EMA.items()}
         opt = dict(lr=cfg.learning_rate, betas=(0.5, 0.9), state_dtype=self.opt_state_dtype)
@@ -251,7 +249,8 @@ class Trainer:
 
     def reference_state_dict(self) -> Dict[str, torch.Tensor]:
         """The weights in the flat reference layout, all fp32 (a bf16 EMA
-        widened, as the JAX package's ``bundle_from_trainer`` does)."""
+        widened, as the JAX package's ``bundle_from_trainer`` does); under
+        FSDP gathered, on every rank."""
         return {k: v.float() for k, v in self.state.reference_state_dict().items()}
 
     def load_state_dict(self, sd) -> List[str]:
@@ -261,7 +260,7 @@ class Trainer:
         (a published checkpoint's ``D_aug.*`` copy of D)."""
         parts, others = convert.split_by_prefix(sd)
         for prefix, module in self.models().items():
-            module.load_state_dict(parts[prefix], strict=True)
+            parallel.load_state_dict_(module, parts[prefix])  # a shard's slice under FSDP
         self.av = None
         return others
 
@@ -270,10 +269,13 @@ class Trainer:
         return self.load_state_dict(convert.load_reference_pt(path))
 
     def export_pt(self, path) -> int:
-        """Write the weights as a reference-layout ``.pt`` (``--export_pt``);
-        returns the number of tensors."""
+        """Write the weights as a reference-layout ``.pt`` (``--export_pt``;
+        rank 0 writes, every rank gathers under FSDP); returns the number
+        of tensors."""
         sd = {k: v.detach().cpu().contiguous() for k, v in self.reference_state_dict().items()}
-        torch.save(sd, path)
+        if parallel.is_main():
+            torch.save(sd, path)
+        parallel.barrier()
         return len(sd)
 
     # ------------------------------------------------------------- data
@@ -367,8 +369,9 @@ class Trainer:
             self.evaluate(steps // 1000)
         # 0 disables it, as None does (the CLI's flag is an int)
         if self.calculate_fid_every and steps % self.calculate_fid_every == 0:
+            params = self._ema_params() if self.sharded else None  # every rank gathers
             if parallel.is_main():  # FID's draws are its own: the others need not follow
-                fid = self.calculate_fid()
+                fid = self.calculate_fid(params=params)
                 prov = self.fid_provenance
                 print(f"FID @ step {steps}: {fid:.4f} [{prov}]")
                 with open(self.results_dir / self.name / "fid_scores.txt", "a") as f:
@@ -431,10 +434,15 @@ class Trainer:
             np.save(tmp / f"{num}-latents.npy", latents.cpu().numpy())
         return images
 
-    def _ema_params(self) -> Dict[str, nn.Module]:
+    def _ema_params(self) -> Dict[str, Callable]:
         """The EMA modules for sampling, fp32: a bf16 EMA is widened into
-        copies (trainer.py:572-581 of the JAX package)."""
+        copies (trainer.py:572-581 of the JAX package); a sharded EMA is
+        gathered (on every rank) and run on its full weights."""
         ema = {"S": self.SE, "H": self.HE, "G": self.GE}
+        if self.sharded:
+            full = parallel.gather_parameters(list(ema.values()))
+            return {k: cast_module(m, torch.float32, {n: t.float() for n, t in p.items()})
+                    for (k, m), p in zip(ema.items(), full)}
         if self.ema_dtype == torch.float32:
             return ema
         return {k: copy.deepcopy(m).float() for k, m in ema.items()}
@@ -451,7 +459,8 @@ class Trainer:
         return latents.to(self.device), noise.to(self.device)
 
     @torch.inference_mode()
-    def calculate_fid(self, num_samples: Optional[int] = None) -> float:
+    def calculate_fid(self, num_samples: Optional[int] = None,
+                      params: Optional[Dict[str, Callable]] = None) -> float:
         """FID between ``num_samples`` EMA samples (truncated at
         ``trunc_psi``, toward histograms of random pool entries) and the
         dataset's images (center crops). The real features are computed
@@ -461,7 +470,8 @@ class Trainer:
         (``metrics/fid.py``); ``fid_provenance`` says which. The draws
         (``_fid_draws``, the histogram and image indices, and the
         truncation center when none is cached) come from generators of
-        their own: the training draws are as without FID."""
+        their own: the training draws are as without FID. ``params``: the
+        EMA models (``_ema_params``), gathered beforehand under FSDP."""
         if self.pool is None:
             raise RuntimeError("calculate_fid scores against the data: call set_data_src first")
         from histogan_tpu_torch.metrics import FIDScorer, default_extractor
@@ -482,7 +492,7 @@ class Trainer:
                 scorer.add_real(imgs[..., :3])  # the extractor's stem is RGB
 
         scorer.reset(real=False)
-        params = self._ema_params()
+        params = params or self._ema_params()
         hist_rng = np.random.default_rng(FID_HIST_SEED + self.steps)
         cached_av = self.av
         if cached_av is None:
@@ -564,14 +574,18 @@ class Trainer:
 
     def save(self, num: int) -> None:
         """Rank 0 writes checkpoint ``num`` and the config; every rank
-        leaves once it is on disk."""
+        leaves once it is on disk. Under FSDP every rank gathers the full
+        state first."""
         s = self.state
-        if parallel.is_main():
-            self.store.save({
+        if self.sharded or parallel.is_main():
+            payload = {
                 "GAN": {k: v.detach().cpu() for k, v in s.reference_state_dict().items()},
-                "opt_g": s.opt_g.state_dict(), "opt_d": s.opt_d.state_dict(),
+                "opt_g": parallel.full_optimizer_state_dict(s.opt_g, [s.S, s.H, s.G]),
+                "opt_d": parallel.full_optimizer_state_dict(s.opt_d, [s.D]),
                 "pl_mean": float(s.pl_mean), "step": s.step,
-            }, num)
+            }
+        if parallel.is_main():
+            self.store.save(payload, num)
             self.write_config()
         parallel.barrier()
 
@@ -588,8 +602,8 @@ class Trainer:
         payload = self.store.restore(name)
         self.load_state_dict(payload["GAN"])
         s = self.state
-        s.opt_g.load_state_dict(payload["opt_g"])
-        s.opt_d.load_state_dict(payload["opt_d"])
+        parallel.load_optimizer_state_dict_(s.opt_g, payload["opt_g"], [s.S, s.H, s.G])
+        parallel.load_optimizer_state_dict_(s.opt_d, payload["opt_d"], [s.D])
         s.pl_mean = torch.tensor(payload["pl_mean"], dtype=torch.float32, device=self.device)
         s.step = int(payload["step"])
 

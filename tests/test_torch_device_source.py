@@ -1,11 +1,16 @@
 """The port's device-resident dataset (``histogan_tpu_torch/data/
 device_source.py``) and ``sync_every`` against the JAX package on the CPU:
-the "auto" decision, the batches of one seed (images exact, histograms to
-1e-6), the crop boxes bit for bit, the crop and resize to within 1 uint8
-level of JAX's and of PIL's, the source each trainer picks, and the
-trainers' sync schedule (the same state as syncing every step, the log
-and the NaN rollback on sync steps only)."""
+the "auto" decision (on one device, and on two, where it may shard the
+cache), the batches of one seed (images exact, histograms to 1e-6), the
+"sharded" placement's batches on two gloo ranks (``tools/dp_step.py``'s
+``spawn``) against the replicated source's bit for bit, the crop boxes bit
+for bit, the crop and resize to within 1 uint8 level of JAX's and of
+PIL's, the source each trainer picks, and the trainers' sync schedule (the
+same state as syncing every step, the log and the NaN rollback on sync
+steps only)."""
 
+import contextlib
+import io
 import types
 
 import jax
@@ -20,6 +25,7 @@ from histogan_tpu.parallel import make_mesh
 from histogan_tpu.train.rehisto_trainer import RecoloringTrainer as JaxRecoloringTrainer
 from histogan_tpu.train.trainer import Trainer as JaxTrainer
 from histogan_tpu_torch.data import dataset, device_source
+from histogan_tpu_torch.tools import dp_step
 from histogan_tpu_torch.train import rehisto_trainer as rehisto_trainer_mod
 from histogan_tpu_torch.train import trainer as trainer_mod
 from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
@@ -86,6 +92,38 @@ def test_device_dataset_decision_matches_jax(flag, case, aug, monkeypatch):
                  lambda: device_source.device_dataset_mode(flag, ds, pool, aug))
     assert got == want
     assert got[1] in (None, "replicated", "raised")
+
+
+MESH2 = types.SimpleNamespace(shape={"data": 2})
+
+
+@pytest.mark.parametrize("flag", [True, False, "auto"])
+@pytest.mark.parametrize("budget,placement", [(100, "replicated"), (60, "sharded"),
+                                              (40, None)])
+@pytest.mark.parametrize("aug", [0.0, 0.5])
+def test_device_dataset_decision_on_two_devices_matches_jax(flag, budget, placement, aug,
+                                                            monkeypatch):
+    """A 100-byte cache and pool on 2 devices: replicated when one device's
+    budget holds it, sharded when two hold it, streamed (or refused, for
+    True) when neither does; the budget is passed to the port and set on
+    the JAX module."""
+    monkeypatch.setattr(jax_ds, "DEVICE_DATASET_BUDGET", budget)
+    ds, pool = _fake(60, 40)
+
+    def decide(fn):
+        try:
+            return fn()
+        except ValueError as e:
+            return type(e).__name__
+
+    want = decide(lambda: jax_ds.device_dataset_mode(flag, ds, pool, MESH2, aug))
+    got = decide(lambda: device_source.device_dataset_mode(flag, ds, pool, aug, world_size=2,
+                                                           budget=budget))
+    assert got == want
+    if flag is True:
+        assert got == (placement or "ValueError")
+    elif flag == "auto" and aug == 0.0:
+        assert got == placement
 
 
 def test_device_dataset_decision_on_a_folder_matches_jax(images, data, tmp_path):
@@ -155,6 +193,68 @@ def test_the_shards_batches_make_the_unsharded_batch(data, mode):
             assert torch.equal(torch.cat([g[k] for g in got], dim=1), v), k
     with pytest.raises(ValueError, match="not divisible"):
         device_source.DeviceDataSource(cache, pool, 3, 2, device="cpu", shard=(0, 2))
+
+
+SHARDED_MODES = {
+    "histogan": dict(), "self_hist_g_images": dict(self_hist=True, include_g_images=True),
+    "g_images": dict(include_g_images=True), "self_hist": dict(self_hist=True),
+    "aug": dict(aug_prob=0.5), "aug_g_images": dict(aug_prob=0.5, include_g_images=True),
+    "aug_self_hist_g_images": dict(aug_prob=0.5, self_hist=True, include_g_images=True)}
+SHARDED_DATA = (7, 16, 16, 1)  # 7 images: rank 1's 4 rows end in a zero pad
+
+
+@pytest.fixture(scope="module")
+def sharded_ranks(tmp_path_factory):
+    """Every mode's 3 batches (global batch 4 at accumulation 2) on two
+    gloo ranks, each holding its half of the cache: the budget holds the
+    cache and pool on two devices, not on one. "auto" picks the sharded
+    placement; the modes with aug_prob (which "auto" streams) ask for the
+    device with True."""
+    tmp = tmp_path_factory.mktemp("sharded")
+    cache, pool = dp_step.synthetic_data(*SHARDED_DATA)
+    budget = (cache.nbytes + pool.nbytes) // 2 + 1
+    cases = [{"kind": "source", "data": SHARDED_DATA, "batch_size": 4, "accum": 2,
+              "batches": 3, "budget": budget, "flag": True if mode.get("aug_prob") else "auto",
+              "options": mode} for mode in SHARDED_MODES.values()]
+    torch.save(cases, tmp / "cases.pt")
+    ranks = dp_step.spawn(tmp / "cases.pt", tmp / "out", 2, "gloo", "cpu",
+                          env={"OMP_NUM_THREADS": "1"})
+    return {name: [r[i] for r in ranks] for i, name in enumerate(SHARDED_MODES)}
+
+
+@pytest.mark.parametrize("mode", list(SHARDED_MODES))
+def test_sharded_ranks_batches_make_the_replicated_batch(sharded_ranks, mode):
+    """Each rank holds ceil(7 / 2) = 4 rows of the cache and the pool
+    (zero-padded), and the two ranks' batches side by side are bit for bit
+    the unsharded source's of the same seed: the exchange brings each rank
+    its rows, and the pool mix and the crop run on them as on the
+    replicated source's."""
+    cache, pool = dp_step.synthetic_data(*SHARDED_DATA)
+    row_bytes = (cache.nbytes + pool.nbytes) // SHARDED_DATA[0]
+    two = sharded_ranks[mode]
+    assert all(r["shard_cache"] and r["rows"] == 4 and r["bytes"] == 4 * row_bytes for r in two)
+    with contextlib.redirect_stdout(io.StringIO()):  # the aug notice
+        full = device_source.DeviceDataSource(cache, pool, 4, 2, seed=3, device="cpu",
+                                              **SHARDED_MODES[mode])
+    for i in range(3):
+        want = next(full)
+        assert set(two[0]["batches"][i]) == set(want)
+        for k, v in want.items():
+            assert two[0]["batches"][i][k].shape[:2] == (2, 2), k
+            assert torch.equal(torch.cat([r["batches"][i][k] for r in two], dim=1), v), (i, k)
+
+
+def test_a_sharded_source_holds_its_rows_zero_padded():
+    """Rank r of 2 keeps rows [4 r, 4 r + 4) of 7; the last is a zero pad."""
+    cache, pool = dp_step.synthetic_data(*SHARDED_DATA)
+    for r in range(2):
+        src = device_source.DeviceDataSource(cache, pool, 4, 1, device="cpu", shard=(r, 2),
+                                             shard_cache=True)
+        assert src.rows == 4 and src.n == 7
+        want = np.zeros((4, *cache.shape[1:]), np.uint8)
+        want[:len(cache[4 * r:4 * r + 4])] = cache[4 * r:4 * r + 4]
+        np.testing.assert_array_equal(src._images.numpy(), want)
+        assert src._pool.shape == (4, *pool.shape[1:])
 
 
 def test_sample_crop_boxes_bit_for_bit():

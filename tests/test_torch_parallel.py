@@ -13,7 +13,10 @@ it are bitwise equal. Two more ranks train two steps through
 ``Trainer.train`` on a folder (save, evaluate, FID at step 0), in a spawn
 of its own that runs while JAX compiles: both ranks
 draw the same initial weights, and only rank 0 writes files. The rest:
-the refusals and the no-op at one process.
+the refusals, the no-op at one process, and param_sharding='fsdp' at one
+process (the replicated path). The JAX cases and their checks also serve
+``tests/test_torch_fsdp.py`` (``sharded``: the JAX HistoGAN step under its
+FSDP layout).
 """
 
 from concurrent.futures import ThreadPoolExecutor
@@ -29,7 +32,8 @@ from histogan_tpu.models import HistVectorizer as JaxHistVectorizer
 from histogan_tpu.models import RecoloringEncoderDecoder as JaxED
 from histogan_tpu.models import RecoloringGAN as JaxRecoloringGAN
 from histogan_tpu.optim import diffgrad as jax_diffgrad
-from histogan_tpu.parallel import make_mesh, replicate, shard_batch
+from histogan_tpu.parallel import (make_mesh, replicate, shard_batch, shard_state,
+                                   state_shardings)
 from histogan_tpu.train import rehisto_steps as jax_rehisto_steps
 from histogan_tpu.train import steps as jax_steps
 from histogan_tpu.train.state import HistoGANState as JaxState
@@ -39,9 +43,9 @@ from histogan_tpu.utils.config import ReHistoGANConfig as JaxReConfig
 from histogan_tpu_torch import parallel
 from histogan_tpu_torch.cli import histogan as cli
 from histogan_tpu_torch.cli import rehistogan as rehisto_cli
-from histogan_tpu_torch.parallel import mesh
+from histogan_tpu_torch.parallel import fsdp, mesh
 from histogan_tpu_torch.tools import dp_step
-from histogan_tpu_torch.train import convert
+from histogan_tpu_torch.train import convert, steps
 from histogan_tpu_torch.train.trainer import Trainer
 from test_torch_rehisto import _jax_bundle
 from test_torch_rehisto_trainer import GRAD_RTOL as RE_GRAD_RTOL
@@ -68,8 +72,18 @@ def _hists(rng, accum, b, hbin=64):
     return h / h.sum(axis=(2, 3, 4), keepdims=True)
 
 
-def _histogan_case(options, size, apply_pl, seed):
-    """The JAX step on the 2-device mesh, and the port's case for it."""
+def _jax_placed(state, mesh, sharded):
+    """``state`` on ``mesh``, replicated or under the FSDP layout, and the
+    ``state_shardings`` a sharded step is built with (None replicated)."""
+    if not sharded:
+        return replicate(state, mesh), None
+    sh = state_shardings(state, mesh)
+    return shard_state(state, mesh, sh), sh
+
+
+def _histogan_case(options, size, apply_pl, seed, sharded=False, tx_options=None):
+    """The JAX step on the 2-device mesh (the state replicated, or under
+    the FSDP layout with ``sharded``), and the port's case for it."""
     cfg = JaxConfig(gradient_accumulate_every=1,
                     **{**SMALL, "image_size": size, "batch_size": GLOBAL_BATCH}, **options)
     params_g, params_d = _jax_params(cfg, seed=seed)
@@ -78,7 +92,7 @@ def _histogan_case(options, size, apply_pl, seed):
         JaxStyleVectorizer(cfg.latent_dim, cfg.style_depth),
         JaxHistVectorizer(cfg.hist_bin, cfg.latent_dim, cfg.style_depth),
         JaxGenerator(cfg.image_size, cfg.latent_dim, cfg.network_capacity), _jax_d(cfg))
-    tx = jax_diffgrad(LR, 0.5, 0.9)
+    tx = jax_diffgrad(LR, 0.5, 0.9, **(tx_options or {}))
     state = JaxState(step=jnp.zeros((), jnp.int32), params_g=params_g, params_d=params_d,
                      ema=params_g, opt_g=tx.init(params_g), opt_d=tx.init(params_d),
                      pl_mean=jnp.zeros(()), vq_stats=vq)
@@ -87,9 +101,9 @@ def _histogan_case(options, size, apply_pl, seed):
              "d_hists": _hists(rng, 1, GLOBAL_BATCH), "g_hists": _hists(rng, 1, GLOBAL_BATCH)}
     key = jax.random.PRNGKey(seed + 2)
     m2 = make_mesh(RANKS)
-    new, metrics = jax_steps.make_train_step(models, tx, tx, cfg)(
-        replicate(state, m2), shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, m2,
-                                          batch_axis=1),
+    placed, sh = _jax_placed(state, m2, sharded)
+    new, metrics = jax_steps.make_train_step(models, tx, tx, cfg, state_shardings=sh)(
+        placed, shard_batch({k: jnp.asarray(v) for k, v in batch.items()}, m2, batch_axis=1),
         key, apply_gp=True, apply_pl=apply_pl)
     new = jax.device_get(new)
     bundle = {"params_g": params_g, "params_d": params_d, "ema": params_g, "vq_stats": vq}
@@ -99,8 +113,10 @@ def _histogan_case(options, size, apply_pl, seed):
                             **options),
             "state": convert.state_dict_from_jax(bundle),
             "steps": [{"batch": {k: torch.from_numpy(v) for k, v in batch.items()},
-                       "draws": jax_step_draws(key, cfg, apply_pl), "gp": True,
-                       "pl": apply_pl}]}
+                       "draws": jax_step_draws(key, cfg, apply_pl,
+                                               z_dtype=jnp.bfloat16 if cfg.precision == "bf16"
+                                               else jnp.float32),
+                       "gp": True, "pl": apply_pl}]}
     want = {"metrics": {k: float(v) for k, v in metrics.items()},
             "after": convert.state_dict_from_jax({"params_g": new.params_g,
                                                   "params_d": new.params_d, "ema": new.ema,
@@ -203,7 +219,14 @@ def _params_bitwise_equal(per_rank):
 
 @pytest.mark.parametrize("name", ["plain", "d_options"])
 def test_two_ranks_match_the_jax_sharded_step(dp, name):
-    got, want = dp["got"][name], dp["want"][name]
+    check_histogan_ranks(dp["got"][name], dp["want"][name], name == "d_options")
+
+
+def check_histogan_ranks(got, want, d_options, grad_rtol=None):
+    """Two ranks' results of a HistoGAN case against the JAX step's, at the
+    tolerances of tests/test_torch_steps.py (the gradients at ``grad_rtol``
+    where it is given)."""
+    name = "d_options" if d_options else "plain"
     _params_bitwise_equal(got)
     assert all(got[0]["metrics"] == r["metrics"] for r in got)  # one NaN verdict
     metrics = got[0]["metrics"][0]
@@ -216,7 +239,7 @@ def test_two_ranks_match_the_jax_sharded_step(dp, name):
     grads = got[0]["grads"]
     assert set(grads) == {k for k in want["grads"]
                           if k.split(".")[0] in ("S", "H", "G", "D") and "quantize_blocks" not in k}
-    rtol = OPTIONS_GRAD_RTOL if name == "d_options" else GRAD_RTOL
+    rtol = grad_rtol or (OPTIONS_GRAD_RTOL if name == "d_options" else GRAD_RTOL)
     for k, g in grads.items():
         scale = want["grads"][k].abs().max().item()
         assert (g - want["grads"][k]).abs().max().item() <= rtol * scale + 1e-12, k
@@ -236,7 +259,12 @@ def test_two_ranks_match_the_jax_sharded_step(dp, name):
 
 
 def test_two_ranks_match_the_jax_sharded_rehisto_step(dp):
-    got, want = dp["got"]["rehisto"], dp["want"]["rehisto"]
+    check_rehisto_ranks(dp["got"]["rehisto"], dp["want"]["rehisto"])
+
+
+def check_rehisto_ranks(got, want):
+    """Two ranks' results of the reHistoGAN case against the JAX step's, at
+    the tolerances of tests/test_torch_rehisto_trainer.py."""
     _params_bitwise_equal(got)
     metrics = got[0]["metrics"][0]
     assert set(metrics) == set(want["metrics"])
@@ -341,18 +369,41 @@ def test_the_cli_picks_the_backend_from_its_device(monkeypatch, tmp_path, module
 
 
 def test_num_devices_without_torchrun_raises_and_names_torchrun(tmp_path):
+    """More than one device needs torchrun; at one process
+    param_sharding='fsdp' is the replicated path (as JAX's FSDP on a
+    1-device mesh): a step from the same weights, batch and draws leaves
+    the same state bit for bit, and the CLI trains with it. An unknown
+    layout raises."""
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Trainer("t", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu", num_devices=2)
     t = Trainer("t", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu", num_devices=1)
     assert t.num_devices == 1
-    with pytest.raises(NotImplementedError, match="autograd.grad"):
+    states = []
+    for layout in ("replicated", "fsdp"):
+        t = Trainer(layout, str(tmp_path / "r"), str(tmp_path / "m"), device="cpu",
+                    param_sharding=layout, **TRAINER)
+        t.init_GAN()
+        assert not t.sharded and not any(fsdp.plan(m) for m in t.models().values())
+        rng = np.random.default_rng(3)
+        h = rng.random((2, 1, GLOBAL_BATCH, 3, 16, 16), dtype=np.float32)
+        batch = {"d_images": torch.from_numpy(rng.integers(0, 256, (1, GLOBAL_BATCH, 32, 32, 3),
+                                                           dtype=np.uint8)),
+                 "d_hists": torch.from_numpy(h[0]), "g_hists": torch.from_numpy(h[1])}
+        draws = steps.draw_step(torch.Generator().manual_seed(4), t.cfg, "cpu", True)
+        steps.train_step(t.state, batch, draws, t.cfg, True, True, True)
+        states.append(t.reference_state_dict())
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    with pytest.raises(ValueError, match="param_sharding"):
         Trainer("t", str(tmp_path / "r"), str(tmp_path / "m"), device="cpu",
-                param_sharding="fsdp")
+                param_sharding="zero")
     dirs = ["--results_dir", str(tmp_path / "res"), "--models_dir", str(tmp_path / "mod"),
             "--image_size", "32", "--network_capacity", "2", "--new", "True", "--device", "cpu"]
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         cli.main([*dirs, "--num_devices", "2"])
-    with pytest.raises(NotImplementedError):
-        cli.main([*dirs, "--param_sharding", "fsdp"])
+    data = _write_images(tmp_path / "data")
+    cli.main([*dirs, "--param_sharding", "fsdp", "--data", str(data), "--name", "fs",
+              "--hist_bin", "16", "--batch_size", "2", "--gradient_accumulate_every", "1",
+              "--num_train_steps", "1"])
+    assert (tmp_path / "mod" / "fs" / "model_0.pt").is_file()
     with pytest.raises(SystemExit):
         cli.main([*dirs, "--param_sharding", "zero"])

@@ -444,14 +444,29 @@ def test_refused_options(tmp_path, images):
         assert out[0] is not None and (out[1] is None) == ("sync_every" in kw)
         assert all(np.isfinite(v) for v in out[0].values())
     # remat is ported: it builds checkpointed models with the same weights;
-    # more than one device needs torchrun, and FSDP is not ported
+    # more than one device needs torchrun; FSDP at one process is the
+    # replicated path, which two steps leave bit for bit alike; an unknown
+    # layout raises
     t = _trainer(tmp_path, remat=True)
     t.init_GAN()
     assert t.cfg.remat and t.ED.remat and t.G.remat and t.D.remat
     with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         _trainer(tmp_path, num_devices=2)
-    with pytest.raises(NotImplementedError, match="autograd.grad"):
-        _trainer(tmp_path, param_sharding="fsdp")
+    states = []
+    for layout in ("replicated", "fsdp"):
+        t = _trainer(tmp_path / layout, param_sharding=layout, device_dataset=False)
+        t.init_GAN()
+        assert not t.sharded
+        t.set_data_src(str(images))
+        try:
+            for _ in range(2):
+                t.train(32, 1.5, 4)
+        finally:
+            t.close()
+        states.append(t.reference_state_dict())
+    assert all(torch.equal(states[0][k], states[1][k]) for k in states[0])
+    with pytest.raises(ValueError, match="param_sharding"):
+        _trainer(tmp_path, param_sharding="zero")
     with pytest.raises(ValueError):
         _trainer(tmp_path, precision="fp16")
     if not torch.cuda.is_available():  # no silent move to the CPU
@@ -464,14 +479,12 @@ def test_refused_options(tmp_path, images):
     # tests/test_torch_rehisto_bf16.py and tests/test_torch_rehisto_post.py)
     with pytest.raises(ValueError, match="torchrun"):
         cli.main([*dirs, "--num_devices", "2"])
-    with pytest.raises(NotImplementedError):
-        cli.main([*dirs, "--param_sharding", "fsdp"])
     # --fq_layers and --attn_layers reach the trainer, which trains with them
-    # and so do --sync_every and --device_dataset
+    # and so do --sync_every, --device_dataset and --param_sharding fsdp
     cli.main([*dirs, "--data", str(images), "--name", "opts", "--hist_bin", "16",
               "--fq_layers", "3", "--attn_layers", "2", "--batch_size", "2",
               "--gradient_accumulate_every", "1", "--num_train_steps", "1",
-              "--sync_every", "2", "--device_dataset", "false"])
+              "--sync_every", "2", "--device_dataset", "false", "--param_sharding", "fsdp"])
     saved = torch.load(tmp_path / "mod" / "opts" / "model_0.pt", weights_only=True)["GAN"]
     assert "D.quantize_blocks.2.fn.embed" in saved and "D.attn_blocks.1.0.fn.g" in saved
 
