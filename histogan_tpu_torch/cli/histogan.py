@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from histogan_tpu_torch import parallel
+from histogan_tpu_torch.utils.logging import readback, span
 
 
 def str2bool(v) -> bool:
@@ -35,9 +36,10 @@ def str2bool(v) -> bool:
 def image_hist(img: np.ndarray, hist_block, device) -> np.ndarray:
     """Decoded (H, W, C) image in [0, 1] -> (1, 3, h, h) histogram,
     computed on ``device`` (through the histogram kernel on a GPU)."""
-    x = torch.as_tensor(np.asarray(img, np.float32)[None], device=device)
-    with torch.inference_mode():
-        return hist_block(x).cpu().numpy()
+    with span("hist.target"):
+        x = torch.as_tensor(np.asarray(img, np.float32)[None], device=device)
+        with torch.inference_mode():
+            return readback("hist", hist_block(x)).numpy()
 
 
 def load_target_hist(path: str, hist_block, device) -> Optional[np.ndarray]:

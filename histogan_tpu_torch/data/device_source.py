@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from histogan_tpu_torch import parallel
+from histogan_tpu_torch.utils.logging import span
 
 # The JAX package's budget for "auto" (images + pool), kept so that "auto"
 # makes the same decision for the same folder.
@@ -242,11 +243,12 @@ def take_batch(loader, staged: Optional[StagedBatch], device) -> Dict[str, torch
     """The step's batch on ``device``: a ``DeviceDataSource``'s gathers, a
     staged batch (``stage_next_batch``), or the loader's next batch copied
     now (the first step, and every step on the CPU)."""
-    if isinstance(loader, DeviceDataSource):
-        return next(loader)
-    if staged is not None:
-        return staged.take()
-    return _to_device(next(loader), device)
+    with span("data.take"):
+        if isinstance(loader, DeviceDataSource):
+            return next(loader)
+        if staged is not None:
+            return staged.take()
+        return _to_device(next(loader), device)
 
 
 def stage_next_batch(loader, device) -> Optional[StagedBatch]:
@@ -256,10 +258,11 @@ def stage_next_batch(loader, device) -> Optional[StagedBatch]:
     device = torch.device(device)
     if isinstance(loader, DeviceDataSource) or device.type != "cuda":
         return None
-    host = next(loader)
-    stream = torch.cuda.Stream(device)  # from PyTorch's pool of streams
-    with torch.cuda.stream(stream):
-        return StagedBatch(_to_device(host, device), stream)
+    with span("data.stage"):
+        host = next(loader)
+        stream = torch.cuda.Stream(device)  # from PyTorch's pool of streams
+        with torch.cuda.stream(stream):
+            return StagedBatch(_to_device(host, device), stream)
 
 
 class DeviceDataSource:

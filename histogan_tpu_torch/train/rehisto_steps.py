@@ -56,6 +56,7 @@ from histogan_tpu_torch.train.state import ReHistoGANState
 from histogan_tpu_torch.train.steps import (
     _accumulate, _update, cast_models, cast_module, compute_dtype, cpu_bf16_double_backward_guard,
     d_loss, dequantize_images, to_nchw)
+from histogan_tpu_torch.utils.logging import span
 
 GAUSS_SIZE, GAUSS_SIGMA = 15, 5.0  # the variance loss's blur (rehisto_steps.py:85)
 
@@ -225,8 +226,10 @@ def train_step(state: ReHistoGANState, batch: Dict[str, torch.Tensor], draws: Re
     Over several ranks ``batch`` and ``draws`` are the rank's slices.
     Returns the step's metrics as 0-d tensors (no host sync), averaged
     across the ranks."""
-    with cpu_bf16_double_backward_guard(batch["d_hists"].device, compute_dtype(cfg)):
+    with (cpu_bf16_double_backward_guard(batch["d_hists"].device, compute_dtype(cfg)),
+          span("step.d_phase", stream=True)):
         metrics = d_phase(state, batch, draws, cfg, apply_gp)
-    metrics.update(g_phase(state, batch, draws, cfg, alpha, beta, gamma))
+    with span("step.g_phase", stream=True):
+        metrics.update(g_phase(state, batch, draws, cfg, alpha, beta, gamma))
     state.step += 1
     return parallel.mean_metrics_across_ranks(metrics)

@@ -66,7 +66,7 @@ from histogan_tpu_torch.train.trainer import DTYPES, NanException, _check_choice
 from histogan_tpu_torch.utils.config import ReHistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
-from histogan_tpu_torch.utils.logging import MetricsLogger
+from histogan_tpu_torch.utils.logging import MetricsLogger, readback, span
 from histogan_tpu_torch.utils.platform import setup_runtime
 
 LIVE = convert.REHISTO_PREFIXES  # ED, H, G, D
@@ -265,7 +265,12 @@ class RecoloringTrainer:
               gamma: float = 4.0) -> Optional[Dict[str, float]]:
         """One training step on the next batch. Returns its metrics as
         floats on a step that syncs (every step at ``sync_every`` 1; else
-        every ``sync_every``-th step and every save step), else None."""
+        every ``sync_every``-th step and every save step), else None.
+        Traced, the call is span ``train.step``, its unit the step."""
+        with span("train.step", unit=self.steps):
+            return self._step(alpha, beta, gamma)
+
+    def _step(self, alpha: float, beta: float, gamma: float) -> Optional[Dict[str, float]]:
         if self.loader is None:
             raise RuntimeError("You must first initialize the data source with "
                                "`.set_data_src(<folder of images>)`")
@@ -286,7 +291,8 @@ class RecoloringTrainer:
         m = None
         if self.sync_every == 1 or steps % self.sync_every == 0 or steps % cfg.save_every == 0:
             names = sorted(metrics)
-            m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
+            values = readback("metrics", torch.stack([metrics[k] for k in names]))  # one sync
+            m = dict(zip(names, values.tolist()))
             self.metrics_logger.log(steps, m)
             self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
             self.r_loss, self.var_loss, self.q_loss = m["r_loss"], m["var_loss"], m["q_loss"]
@@ -314,18 +320,20 @@ class RecoloringTrainer:
         returns NHWC images clipped to [0, 1], in the compute dtype (bf16
         under ``precision='bf16'``, as the JAX package's ``_recolor``).
         ``noise`` (N, S, S, 1) defaults to a draw from the trainer's
-        generator."""
-        image_batch = torch.as_tensor(image_batch, dtype=torch.float32, device=self.device)
-        hist_batch = torch.as_tensor(hist_batch, dtype=torch.float32, device=self.device)
-        if noise is None:
-            noise = torch.rand((*image_batch.shape[:3], 1), generator=self.gen,
-                               device=self.device)
-        gen = (self.ED, self.H, self.G)
-        full = parallel.gather_parameters(gen)  # a collective under FSDP
-        models = cast_models(RecolorModels(*gen, None), compute_dtype(self.cfg), [*full, None])
-        out = recolor_forward(models, image_batch.permute(0, 3, 1, 2), hist_batch,
-                              torch.as_tensor(noise, device=self.device), self.cfg)
-        return torch.clamp(out.permute(0, 2, 3, 1), 0.0, 1.0)
+        generator. Traced, the call is span ``recolor``."""
+        with span("recolor"):
+            image_batch = torch.as_tensor(image_batch, dtype=torch.float32, device=self.device)
+            hist_batch = torch.as_tensor(hist_batch, dtype=torch.float32, device=self.device)
+            if noise is None:
+                noise = torch.rand((*image_batch.shape[:3], 1), generator=self.gen,
+                                   device=self.device)
+            gen = (self.ED, self.H, self.G)
+            full = parallel.gather_parameters(gen)  # a collective under FSDP
+            models = cast_models(RecolorModels(*gen, None), compute_dtype(self.cfg),
+                                 [*full, None])
+            out = recolor_forward(models, image_batch.permute(0, 3, 1, 2), hist_batch,
+                                  torch.as_tensor(noise, device=self.device), self.cfg)
+            return torch.clamp(out.permute(0, 2, 3, 1), 0.0, 1.0)
 
     def _eval_batches(self, triple_hist: bool, double_hist: bool):
         if self.pool is None:
@@ -365,7 +373,8 @@ class RecoloringTrainer:
         else:
             img_bt_sz = len(image_batch)
         # widened to fp32 before the clip's output is written or post-processed
-        generated = self.recolor(image_batch, hist_batch).float().cpu().numpy()
+        generated = readback("images", self.recolor(image_batch, hist_batch).float(),
+                             stream=True).numpy()
         if not parallel.is_main():  # every rank recolors (the same noise); rank 0 writes
             return generated
         grouped = double_hist or triple_hist

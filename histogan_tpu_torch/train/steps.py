@@ -72,6 +72,7 @@ from histogan_tpu_torch.ops.diffaugment import AugDraws, aug_wrapper, draw_aug
 from histogan_tpu_torch.ops.histogram import histogram_feature
 from histogan_tpu_torch.parallel import fsdp
 from histogan_tpu_torch.train.state import HistoGANState
+from histogan_tpu_torch.utils.logging import span
 
 EPS = 1e-8  # histoGAN/histoGAN.py:53
 
@@ -296,8 +297,9 @@ def d_loss(D: Callable, fake: torch.Tensor, real: torch.Tensor, apply_gp: bool,
         return div + q, div, q, real.new_zeros(())
     fake_logits, fake_q = d_apply(D, fake, dtype, aug_f)
     if apply_gp:
-        real_logits, real_q, gp = losses.shared_forward_gradient_penalty(
-            lambda x: d_apply(D, x, dtype, aug_r), real, has_aux=True)
+        with span("step.gp"):
+            real_logits, real_q, gp = losses.shared_forward_gradient_penalty(
+                lambda x: d_apply(D, x, dtype, aug_r), real, has_aux=True)
     else:
         (real_logits, real_q), gp = d_apply(D, real, dtype, aug_r), real.new_zeros(())
     div = losses.hinge_divergence(real_logits, fake_logits)
@@ -327,14 +329,15 @@ def g_loss(models: Models, hist_batch: torch.Tensor, draws: GenDraws,
         # with the JAX package's safe std: var + 1e-12 keeps the sqrt's
         # gradient finite when a w coordinate is equal across the batch (as
         # it can be under bf16); the variance is the global batch's
-        w32 = w_styles.float()
-        sigma = torch.sqrt(parallel.batch_var(w32) + 1e-12)
-        std = 0.1 / (sigma + EPS)
-        w2 = w32 + pl_noise / (std + EPS)
-        pl_images = models.G(w2.to(dtype), h_rows, draws.noise.to(dtype))
-        pl_lengths = losses.path_length_lengths(pl_images.float(), images.float())
-        avg_pl = torch.mean(pl_lengths)
-        loss = loss + losses.path_length_penalty(pl_lengths, pl_mean)
+        with span("step.pl"):
+            w32 = w_styles.float()
+            sigma = torch.sqrt(parallel.batch_var(w32) + 1e-12)
+            std = 0.1 / (sigma + EPS)
+            w2 = w32 + pl_noise / (std + EPS)
+            pl_images = models.G(w2.to(dtype), h_rows, draws.noise.to(dtype))
+            pl_lengths = losses.path_length_lengths(pl_images.float(), images.float())
+            avg_pl = torch.mean(pl_lengths)
+            loss = loss + losses.path_length_penalty(pl_lengths, pl_mean)
     return loss, adv, hist, avg_pl
 
 
@@ -350,14 +353,15 @@ def _update(opt: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads, a
     sharded module) on the mean of the summed micro-batch gradients
     ``grads`` (full size), averaged across the ranks, a shard's
     reduce-scattered onto it (``grads`` then holds the shard's)."""
-    if accum > 1:
-        torch._foreach_div_(grads, float(accum))
-    fsdp.reduce_gradients_(params, grads)
-    for p, g in zip(params, grads):
-        p.grad = g
-    opt.step()
-    for p in params:
-        p.grad = None
+    with span("step.update", stream=True):
+        if accum > 1:
+            torch._foreach_div_(grads, float(accum))
+        fsdp.reduce_gradients_(params, grads)
+        for p, g in zip(params, grads):
+            p.grad = g
+        opt.step()
+        for p in params:
+            p.grad = None
 
 
 def d_phase(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: StepDraws, cfg,
@@ -422,10 +426,13 @@ def train_step(state: HistoGANState, batch: Dict[str, torch.Tensor], draws: Step
     Over several ranks ``batch`` and ``draws`` are the rank's slices.
     Returns the step's metrics as 0-d tensors (no host sync), averaged
     across the ranks."""
-    with cpu_bf16_double_backward_guard(state.pl_mean.device, compute_dtype(cfg)):
+    with (cpu_bf16_double_backward_guard(state.pl_mean.device, compute_dtype(cfg)),
+          span("step.d_phase", stream=True)):
         metrics = d_phase(state, batch, draws, cfg, apply_gp)
-    metrics.update(g_phase(state, batch, draws, cfg, apply_pl))
+    with span("step.g_phase", stream=True):
+        metrics.update(g_phase(state, batch, draws, cfg, apply_pl))
     if apply_ema:
-        state.update_ema()
+        with span("step.ema", stream=True):
+            state.update_ema()
     state.step += 1
     return parallel.mean_metrics_across_ranks(metrics)

@@ -93,7 +93,7 @@ from histogan_tpu_torch.train.steps import cast_module, draw_step, train_step
 from histogan_tpu_torch.utils.config import HistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
-from histogan_tpu_torch.utils.logging import MetricsLogger, ProfilerHook
+from histogan_tpu_torch.utils.logging import MetricsLogger, ProfilerHook, readback, span
 from histogan_tpu_torch.utils.platform import setup_runtime
 
 
@@ -320,7 +320,16 @@ class Trainer:
         step at ``sync_every`` 1; else every ``sync_every``-th step and
         every save step) returns its metrics as floats, after the log and
         the NaN check; on any other step returns None, its metrics left on
-        the device unread."""
+        the device unread. Traced, the call is span ``train.step``, its unit
+        the step; a profiler hook (``enable_profiling``) starts and stops
+        between such calls."""
+        with span("train.step", unit=self.steps):
+            m = self._step(alpha)
+        if self.profiler_hook is not None:
+            self.profiler_hook.step(self.steps - 1)
+        return m
+
+    def _step(self, alpha: float) -> Optional[Dict[str, float]]:
         if self.loader is None:
             raise RuntimeError("You must first initialize the data source with "
                                "`.set_data_src(<folder of images>)`")
@@ -342,14 +351,13 @@ class Trainer:
         self._staged = device_source.stage_next_batch(self.loader, self.device)
         if apply_reset:
             self.state.reset_ema()
-        if self.profiler_hook is not None:
-            self.profiler_hook.step(steps)
 
         checkpoint_num = steps // cfg.save_every
         m = None
         if self.sync_every == 1 or steps % self.sync_every == 0 or steps % cfg.save_every == 0:
             names = sorted(metrics)
-            m = dict(zip(names, torch.stack([metrics[k] for k in names]).tolist()))  # one sync
+            values = readback("metrics", torch.stack([metrics[k] for k in names]))  # one sync
+            m = dict(zip(names, values.tolist()))
             self.metrics_logger.log(steps, m)
             self.d_loss, self.g_loss, self.h_loss = m["d_loss"], m["g_loss"], m["h_loss"]
             self.q_loss = m["q_loss"]
@@ -419,9 +427,9 @@ class Trainer:
         latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
         hist_batch = torch.as_tensor(hist_batch, dtype=torch.float32, device=dev)
 
-        images = self.generate_truncated(
-            self._ema_params(), hist_batch, latents, n, trunc_psi=cfg.trunc_psi
-        ).cpu().numpy()
+        images = readback("images", self.generate_truncated(
+            self._ema_params(), hist_batch, latents, n, trunc_psi=cfg.trunc_psi),
+            stream=True).numpy()
         if not parallel.is_main():  # every rank samples (the same draws); rank 0 writes
             return images
         if num is not None:
@@ -532,31 +540,33 @@ class Trainer:
         ``style``: (N, latent) z batch; ``noi``: (N, S, S, 1) noise;
         ``hist_batch``: (k, 3, h, h), tile-doubled here to N rows.
         ``av`` is resolved once and kept; G runs in chunks of
-        ``cfg.batch_size``. Returns NHWC images clipped to [0, 1].
+        ``cfg.batch_size``. Returns NHWC images clipped to [0, 1]. Traced,
+        the call is span ``sample.generate``.
         """
-        cfg = self.cfg
-        if self.av is None:
-            self.av = self.compute_av(models["S"])
-        av = torch.as_tensor(self.av, dtype=torch.float32, device=self.device)
-        nl = cfg.num_layers
-        n = style.shape[0]
+        with span("sample.generate"):
+            cfg = self.cfg
+            if self.av is None:
+                self.av = self.compute_av(models["S"])
+            av = torch.as_tensor(self.av, dtype=torch.float32, device=self.device)
+            nl = cfg.num_layers
+            n = style.shape[0]
 
-        w = models["S"](style)
-        w = trunc_psi * (w - av) + av
-        w_styles = w[:, None, :].expand(n, nl - 2, w.shape[-1])
-        h_w = models["H"](hist_batch)
-        h_rows = torch.stack([h_w, h_w], dim=1)
-        # tile doubling to match the latent batch (histoGAN/histoGAN.py:1085-1086)
-        for _ in range(int(np.log2(np.sqrt(n)))):
-            h_rows = torch.cat([h_rows, h_rows], dim=0)
-        h_rows = h_rows[:n]
+            w = models["S"](style)
+            w = trunc_psi * (w - av) + av
+            w_styles = w[:, None, :].expand(n, nl - 2, w.shape[-1])
+            h_w = models["H"](hist_batch)
+            h_rows = torch.stack([h_w, h_w], dim=1)
+            # tile doubling to match the latent batch (histoGAN/histoGAN.py:1085-1086)
+            for _ in range(int(np.log2(np.sqrt(n)))):
+                h_rows = torch.cat([h_rows, h_rows], dim=0)
+            h_rows = h_rows[:n]
 
-        # chunked generation (evaluate_in_chunks, histoGAN/histoGAN.py:206-212)
-        bs = cfg.batch_size
-        outs = [models["G"](w_styles[s : s + bs], h_rows[s : s + bs], noi[s : s + bs])
-                for s in range(0, n, bs)]
-        images = torch.cat(outs, dim=0).permute(0, 2, 3, 1)
-        return torch.clamp(images, 0.0, 1.0)
+            # chunked generation (evaluate_in_chunks, histoGAN/histoGAN.py:206-212)
+            bs = cfg.batch_size
+            outs = [models["G"](w_styles[s : s + bs], h_rows[s : s + bs], noi[s : s + bs])
+                    for s in range(0, n, bs)]
+            images = torch.cat(outs, dim=0).permute(0, 2, 3, 1)
+            return torch.clamp(images, 0.0, 1.0)
 
     # ------------------------------------------------------ persistence
     def config(self) -> dict:
