@@ -23,6 +23,14 @@ Phases, each printing its lines:
      weights, latents and noise;
   6. backward: K2 against its plain version, timed and bounded as in
      phase 3;
+  U. upsample: U1 and U2, the 2x bilinear upsample (csrc/upsample2x.cu),
+     built and held to no spills, at the 12 upsample shapes of G's forward
+     at 256 px capacity 16, batch 16: U1 equal to aten's forward bit for
+     bit and within 2 fp32 ulps of its plain version, U2 equal to its plain
+     version bit for bit and within 1e-6 relative of aten's backward; per
+     shape the event time, the device time, the HBM bound and its share,
+     the plain version's time and library_ms (aten's forward or backward,
+     which the port no longer calls), and their sums over a G forward;
   7. loss gradient: d Hellinger / d images at (16, 256, 256, 3) through the
      kernels against the same on the CPU (the plain versions);
   8. train: Trainer.set_data_src on 64 written images and Trainer.train
@@ -293,6 +301,16 @@ SHAPES = [(1, 150 * 150, "pixels"), (16, 64 * 64, "pixels"), (8, 250 * 250, "pix
           (2, 64 * 64, "hist_of_hist")]
 BWD_SHAPES = [(16, 64 * 64), (16, 150 * 150), (3, 4097), (2, 64 * 64)]  # (B, N) of packed, K2
 MAIN_SHAPE = (16, 64 * 64)  # both kernels on the training path: the loss's histograms
+# (channels, input side) of the 12 upsamples of G's forward at 256 px,
+# capacity 16: six of x (blocks 1-6), six of the RGB (blocks 0-5); U1 and
+# U2 are timed at batch 16. U1 is held to aten's forward bit for bit and to
+# its plain version within 2 fp32 ulps of the largest value, U2 to its
+# plain version bit for bit and to aten's backward within
+# UPSAMPLE_BWD_RTOL of it (tests/test_torch_cuda.py's gates)
+UPSAMPLE_SHAPES = [(2048, 4), (1024, 8), (512, 16), (256, 32), (128, 64), (64, 128),
+                   (3, 4), (3, 8), (3, 16), (3, 32), (3, 64), (3, 128)]
+UPSAMPLE_BATCH = 16
+UPSAMPLE_BWD_RTOL = 1e-6
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
 FLAGSHIP = dict(image_size=256, network_capacity=16, latent_dim=512, style_depth=8)
 # reHistoGAN at the rehistogan CLI's defaults (histogan_tpu/cli/rehistogan.py:261-347)
@@ -407,9 +425,9 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50) -> float:
-    """Device time per call of the kernels named hist_* that ``fn``
-    launches once each, from torch.profiler's device events over ``reps``
+def device_ms(fn, reps: int = 50, kernel: str = "hist_") -> float:
+    """Device time per call of the kernels whose names hold ``kernel``
+    that ``fn`` launches once each, from torch.profiler's device events over ``reps``
     calls (the wrapper's host work left out). The profiler may drop an
     event now and then, so each kernel's time is averaged over the
     launches it recorded. A session may come back with no device events,
@@ -425,14 +443,14 @@ def device_ms(fn, reps: int = 50) -> float:
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and "hist_" in e.key]
+                  if e.device_type == DeviceType.CUDA and kernel in e.key]
         recorded = bool(events) and all(reps // 2 <= e.count <= reps for e in events)
         if recorded:
             break
-        print(f"profiler: session {attempt + 1} recorded the hist_ kernels "
+        print(f"profiler: session {attempt + 1} recorded the {kernel} kernels "
               f"{[(e.key[:40], e.count) for e in events]} times of {reps}; profiling again")
     check(recorded,
-          f"the profiler saw each hist_ kernel up to {reps} times: "
+          f"the profiler saw each {kernel} kernel up to {reps} times: "
           f"{[(e.key[:40], e.count) for e in events]}")
     return sum(e.self_device_time_total / e.count for e in events) / 1e3
 
@@ -470,8 +488,24 @@ def normalise(h: torch.Tensor) -> torch.Tensor:
 
 
 def reset_counts(histogram_cuda) -> None:
+    from histogan_tpu_torch.ops import resize
+
     histogram_cuda.launches = 0
     histogram_cuda.bwd_launches = 0
+    resize.launches = 0
+    resize.bwd_launches = 0
+
+
+def check_no_spills(name: str, lib: Path) -> None:
+    """Prints the ptxas report kept beside ``lib`` and holds it to no spills."""
+    spills = []
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"build: {name} ptxas {line.strip()}")
+        if "spill" in line:
+            spills.append(line.strip())
+    check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line
+                               for line in spills), f"{name} spills no registers: {spills}")
 
 
 # ---------------------------------------------------------------- phases
@@ -479,22 +513,17 @@ def phase_build(histogram_cuda) -> dict:
     """Builds both kernels, holds both to no register spills; returns
     {name: the HMMA count of its library} (None where the toolkit has no
     cuobjdump)."""
+    from histogan_tpu_torch.ops import cuda_build
+
     t0 = time.perf_counter()
-    libs = histogram_cuda.build()
+    libs = cuda_build.build(("histogram_fwd", "histogram_bwd"))
     for name in libs:
         histogram_cuda._library(name)
     print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.2f} s")
     hmma = {}
-    cuobjdump = Path(histogram_cuda._nvcc()).with_name("cuobjdump")
+    cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
     for name, lib in sorted(libs.items()):
-        spills = []
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"build: {name} ptxas {line.strip()}")
-            if "spill" in line:
-                spills.append(line.strip())
-        check(bool(spills) and all("0 bytes spill stores, 0 bytes spill loads" in line
-                                   for line in spills), f"{name} spills no registers: {spills}")
+        check_no_spills(name, lib)
         if not cuobjdump.is_file():
             print(f"build: no {cuobjdump}; HMMA count not taken")
             hmma[name] = None
@@ -566,8 +595,77 @@ def phase_forward(histogram_cuda, dev):
     return max_err, rows
 
 
+def phase_upsample(dev) -> list:
+    """Phase U: builds U1 and U2 (no spills), holds them at G's 12
+    upsample shapes at batch 16 to aten's and to their plain versions in
+    the gates of UPSAMPLE_SHAPES, and times each: the
+    wrapper's event time, the kernel's device time, the HBM bound (input
+    and output each once) and its share, the plain version's time and
+    library_ms, aten's F.interpolate (forward) or upsample_bilinear2d's
+    backward, a yardstick the port no longer calls. Returns the rows."""
+    import torch.nn.functional as F
+
+    from histogan_tpu_torch.ops import cuda_build, resize
+
+    t0 = time.perf_counter()
+    lib = cuda_build.build(("upsample2x",))["upsample2x"]
+    print(f"build: upsample2x in {time.perf_counter() - t0:.2f} s")
+    check_no_spills("upsample2x", lib)
+    hbm = 3.35e12  # bytes/s, H100 SXM at 700 W
+    rows, b = [], UPSAMPLE_BATCH
+    for c, h in UPSAMPLE_SHAPES:
+        gen = torch.Generator(device=dev).manual_seed(c * h)
+        x = torch.randn((b, c, h, h), generator=gen, device=dev)
+        g = torch.randn((b, c, 2 * h, 2 * h), generator=gen, device=dev)
+        y, dx = resize.upsample2x_cuda(x), resize.upsample2x_bwd_cuda(g)
+        aten_y = F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+        aten_dx = torch.ops.aten.upsample_bilinear2d_backward(
+            g, [2 * h, 2 * h], [b, c, h, h], False, 2.0, 2.0)
+        torch.cuda.synchronize()
+        plain_y = resize.upsample2x_plain(x)
+        ulp = 2.0 ** (math.floor(math.log2(plain_y.abs().max().item())) - 23)
+        fwd_gap = (y - plain_y).abs().max().item()
+        bwd_rel = ((dx - aten_dx).abs().max() / aten_dx.abs().max()).item()
+        check(torch.equal(y, aten_y), f"U1 equals aten's forward at {c}x{h}^2")
+        check(torch.equal(dx, resize.upsample2x_bwd_plain(g)),
+              f"U2 equals its plain version at {c}x{h}^2")
+        check(fwd_gap <= 2 * ulp, f"U1 within 2 ulps ({2 * ulp:.3e}) of its plain version at "
+                                  f"{c}x{h}^2: {fwd_gap:.3e}")
+        check(bwd_rel <= UPSAMPLE_BWD_RTOL,
+              f"U2 within {UPSAMPLE_BWD_RTOL} of aten's backward at {c}x{h}^2: {bwd_rel:.3e}")
+        row = {"C": c, "H": h, "B": b, "fwd_gap_ulps": fwd_gap / ulp, "bwd_rel": bwd_rel}
+        for kind, kernel, plain, library in (
+                ("fwd", lambda: resize.upsample2x_cuda(x), lambda: resize.upsample2x_plain(x),
+                 lambda: F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)),
+                ("bwd", lambda: resize.upsample2x_bwd_cuda(g),
+                 lambda: resize.upsample2x_bwd_plain(g),
+                 lambda: torch.ops.aten.upsample_bilinear2d_backward(
+                     g, [2 * h, 2 * h], [b, c, h, h], False, 2.0, 2.0))):
+            ms, plain_ms, _ = alternate_ms(plain, kernel, reps=20)
+            dev_ms = device_ms(kernel, kernel=f"upsample2x_{kind}_kernel")
+            bound = 1e3 * 5 * x.numel() * x.element_size() / hbm
+            row[kind] = {"ms": ms, "device_ms": dev_ms, "bound_ms": bound,
+                         "share": bound / dev_ms, "plain_ms": plain_ms,
+                         "library_ms": time_ms(library, 20)}
+            r = row[kind]
+            print(f"upsample: U{1 if kind == 'fwd' else 2} ({b}, {c}, {h}^2) event {ms:.4f} ms, "
+                  f"device {dev_ms:.4f} ms, bound {bound:.4f} ms (bytes), share "
+                  f"{r['share']:.3f}, plain {plain_ms:.4f} ms, library {r['library_ms']:.4f} ms")
+        print(f"upsample: ({b}, {c}, {h}^2) U1 equals aten's forward, max|d| vs plain "
+              f"{row['fwd_gap_ulps']:.2f} ulps of the largest; U2 vs aten relative {bwd_rel:.3e}")
+        rows.append(row)
+        del x, g, y, dx, aten_y, aten_dx, plain_y
+    for kind in ("fwd", "bwd"):
+        print(f"upsample: a G forward of {b} (12 upsamples): U{1 if kind == 'fwd' else 2} "
+              f"device {sum(r[kind]['device_ms'] for r in rows):.4f} ms, bound "
+              f"{sum(r[kind]['bound_ms'] for r in rows):.4f} ms, library "
+              f"{sum(r[kind]['library_ms'] for r in rows):.4f} ms")
+    return rows
+
+
 def phase_sampling(histogram_cuda, dev, smi):
     from histogan_tpu_torch.cli.histogan import sample_target, tile_double
+    from histogan_tpu_torch.ops import resize
     from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, resize_if_needed
     from histogan_tpu_torch.train.trainer import Trainer
 
@@ -601,12 +699,14 @@ def phase_sampling(histogram_cuda, dev, smi):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = histogram_cuda.launches
+    up_launches = resize.launches
     peak = torch.cuda.max_memory_allocated()
     check(out.shape == (tiles * tiles, 256, 256, 3), f"output shape {out.shape}")
     check(bool(np.isfinite(out).all()), "output finite")
     check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output in [0, 1]")
     check(float(out.std()) > 0.0, "output not constant")
     check(launches >= 1, f"histogram kernel launched on the sampling path ({launches})")
+    check(up_launches >= 1, f"U1 launched on the sampling path ({up_launches})")
 
     x = torch.from_numpy(img[None]).to(dev)
     with torch.inference_mode():
@@ -619,7 +719,8 @@ def phase_sampling(histogram_cuda, dev, smi):
     rate = tiles * tiles / dt
     print(f"slice: {tiles * tiles} samples 256x256 in {dt:.4f} s = {rate:.2f} imgs/s "
           f"(fp32, {tiles * tiles // cfg['batch_size']} G chunks of {cfg['batch_size']}; "
-          f"histogram kernel launches {launches}; target hist max|d| {herr:.3e}; "
+          f"histogram kernel launches {launches}, U1 {up_launches}; target hist max|d| "
+          f"{herr:.3e}; "
           f"peak {peak} bytes) on {smi}")
 
     # ---- 5. two samples against the CPU with the same weights and inputs
@@ -638,7 +739,7 @@ def phase_sampling(histogram_cuda, dev, smi):
     serr = float(np.abs(imgs["cuda"] - imgs["cpu"]).max())
     check(serr <= SLICE_TOL, f"card vs CPU samples max|d| {serr:.3e} <= {SLICE_TOL}")
     print(f"reference: 2 samples, card vs CPU max|d| {serr:.3e} (tolerance {SLICE_TOL})")
-    return launches
+    return launches, up_launches
 
 
 def phase_backward(histogram_cuda, dev):
@@ -764,6 +865,7 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     discriminator's options in ``policy`` (D_OPTIONS, D_OPTIONS_BF16) and
     a ``tag``, D1 and D1b: the codebook across the save and load, the GP
     step's device time and the attention and VQ layers' times too."""
+    from histogan_tpu_torch.ops import resize
     from histogan_tpu_torch.train.trainer import Trainer
 
     policy = policy or {}
@@ -802,11 +904,14 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
         print(f"{tag}: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
-    counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches}
+    counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches,
+              "upsample2x_fwd": resize.launches, "upsample2x_bwd": resize.bwd_launches}
     peak = torch.cuda.max_memory_allocated()
     check(counts["histogram_fwd"] - pool_launches == 10 and counts["histogram_bwd"] == 10,
           f"one K1 and one K2 a step on the {label} training path: {counts} with "
           f"{pool_launches} K1 in the pool build")
+    check(counts["upsample2x_fwd"] >= 1 and counts["upsample2x_bwd"] >= 1,
+          f"U1 and U2 on the {label} training path: {counts}")
     after = t.reference_state_dict()
     for prefix in ("S", "H", "G", "D"):
         keys = [k for k in after if k.split(".")[0] == prefix]
@@ -3627,8 +3732,9 @@ def main(argv=None) -> int:
 
     hmma = timed("2", phase_build, histogram_cuda)
     fwd_err, fwd_rows = timed("3", phase_forward, histogram_cuda, dev)
-    sampling_launches = timed("4-5", phase_sampling, histogram_cuda, dev, smi)
+    sampling_launches, sampling_u1 = timed("4-5", phase_sampling, histogram_cuda, dev, smi)
     bwd_err, bwd_rows = timed("6", phase_backward, histogram_cuda, dev)
+    upsample_rows = timed("U", phase_upsample, dev)
     timed("7", phase_loss_gradient, dev)
     counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
     counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
@@ -3732,6 +3838,13 @@ def main(argv=None) -> int:
                               "training_profiled": counts_profiler["histogram_bwd"]},
          "max_abs_err": bwd_err, **main_row(bwd_rows), "hmma": hmma["histogram_bwd"],
          "shapes": bwd_rows},
+        *({"name": f"upsample2x_{kind}", "route": "cuda",
+           "source": "histogan_tpu_torch/csrc/upsample2x.cu", "replaces": None,
+           "launches_by_path": {**({"sampling": sampling_u1} if kind == "fwd" else {}),
+                                "training": counts[f"upsample2x_{kind}"],
+                                "training_bf16": counts_bf16[f"upsample2x_{kind}"]},
+           "shapes": [{k: r[k] for k in ("B", "C", "H")} | r[kind] for r in upsample_rows]}
+          for kind in ("fwd", "bwd")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,26 +15,22 @@ tensor it launches the kernels or raises: a missing ``nvcc``, a failed
 build or a refused launch is an error, never a silent fall back to the
 einsum.
 
-Each kernel is built with ``nvcc`` at first use into ``build/`` beside
-the package (the repository's ignored build directory), keyed by a hash
-of its own source and the flags, and bound with ``ctypes``.
+Each kernel is built with ``nvcc`` at first use and bound with
+``ctypes`` (``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-from pathlib import Path
 from typing import Dict, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
+
+from histogan_tpu_torch.ops import cuda_build
 
 EPS = 1e-6
 H_BINS = 64
@@ -43,14 +39,6 @@ MIN_CHUNK = 256  # fewest pixels a block takes before the split stops
 BLOCKS_PER_SM = 2  # K1's blocks resident on one SM (registers and shared memory)
 REFERENCE_TILE = 512  # pixels per tile of the plain version, as on the TPU
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = {"histogram_fwd": CSRC / "histogram_fwd.cu",  # K1
-           "histogram_bwd": CSRC / "histogram_bwd.cu"}  # K2
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 # Kernel launches since the last reset, K1 and K2 apart; only a
 # successful launch of the CUDA kernel adds to its count.
@@ -186,56 +174,6 @@ def split_pixels(batch: int, n_pixels: int, num_sms: int) -> Tuple[int, int]:
     return chunk, -(-n_pixels // chunk)
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
-    candidate = Path(home) / "bin" / "nvcc"
-    if candidate.is_file():
-        return str(candidate)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            f"nvcc not found (looked in {candidate} and on PATH); the "
-            f"histogram kernels are built from {CSRC} at first use")
-    return found
-
-
-def library_path(name: str) -> Path:
-    """Where the library of kernel ``name`` (a key of SOURCES) is built,
-    keyed by its own source and the flags."""
-    key = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
-
-
-def build(names=tuple(SOURCES)) -> Dict[str, Path]:
-    """Compile each named kernel whose library is not built yet, one
-    ``nvcc`` per source, all started together. The compiler's report
-    (``-Xptxas -v``: registers, shared memory, spills) is kept beside each
-    library as ``.log``. Returns {name: library path}."""
-    libs = {name: library_path(name) for name in names}
-    todo = [name for name, lib in libs.items() if not lib.is_file()]
-    if not todo:
-        return libs
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
-    for name in todo:
-        tmp = libs[name].with_name(f"{libs[name].name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-        jobs.append((name, tmp, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
-    for name, tmp, cmd, proc in jobs:
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{out}\n{err}")
-            continue
-        libs[name].with_suffix(".log").write_text(out + err)
-        os.replace(tmp, libs[name])  # atomic: a concurrent build sees all or nothing
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return libs
-
-
 _ARGTYPES = {
     # packed, partial, out, batch, n_pixels, chunk, n_chunks, inv_sigma2, device, stream
     "histogram_fwd": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
@@ -247,26 +185,8 @@ _ARGTYPES = {
 }
 
 
-@functools.lru_cache(maxsize=None)
 def _library(name: str) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build((name,))[name]))
-    fn = getattr(lib, name)
-    fn.argtypes = _ARGTYPES[name]
-    fn.restype = ctypes.c_int
-    err = getattr(lib, f"{name}_error_string")
-    err.argtypes = [ctypes.c_int]
-    err.restype = ctypes.c_char_p
-    return lib
-
-
-def _check_launch(lib: ctypes.CDLL, name: str, err: int) -> None:
-    if err != 0:
-        msg = getattr(lib, f"{name}_error_string")(err).decode()
-        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
-
-
-def _device_index(dev: torch.device) -> int:
-    return dev.index if dev.index is not None else torch.cuda.current_device()
+    return cuda_build.library(name, {name: _ARGTYPES[name]})
 
 
 @functools.lru_cache(maxsize=None)
@@ -294,7 +214,7 @@ def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
     b, n, _ = packed.shape
     lib = _library("histogram_fwd")
     dev = packed.device
-    index = _device_index(dev)
+    index = cuda_build.device_index(dev)
     chunk, n_chunks = split_pixels(b, n, _num_sms(index))
     out = torch.empty((b, 3, H_BINS, H_BINS), device=dev, dtype=torch.float32)
     partial = (torch.empty((b, 3, n_chunks, H_BINS, H_BINS), device=dev,
@@ -303,7 +223,7 @@ def _launch(packed: torch.Tensor, inv_sigma2: float) -> torch.Tensor:
     err = lib.histogram_fwd(
         packed.data_ptr(), partial.data_ptr(), out.data_ptr(), b, n, chunk,
         n_chunks, float(inv_sigma2), index, torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(lib, "histogram_fwd", err)
+    cuda_build.check_launch(lib, "histogram_fwd", "histogram_fwd", err)
     launches += 1
     return out
 
@@ -326,8 +246,8 @@ def _launch_bwd(packed: torch.Tensor, g: torch.Tensor, inv_sigma2: float) -> tor
     out = torch.empty_like(packed)
     err = lib.histogram_bwd(
         packed.data_ptr(), g.data_ptr(), out.data_ptr(), b, n, float(inv_sigma2),
-        _device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
-    _check_launch(lib, "histogram_bwd", err)
+        cuda_build.device_index(dev), torch.cuda.current_stream(dev).cuda_stream)
+    cuda_build.check_launch(lib, "histogram_bwd", "histogram_bwd", err)
     bwd_launches += 1
     return out
 

@@ -143,13 +143,13 @@ def _smi(query: str) -> str:
 
 
 def _build():
-    from histogan_tpu_torch.ops import histogram_cuda
+    from histogan_tpu_torch.ops import cuda_build
 
-    histogram_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = histogram_cuda.BUILD_DIR / "mma_ceiling.cu"
-    lib = histogram_cuda.BUILD_DIR / "libmma_ceiling.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = cuda_build.BUILD_DIR / "mma_ceiling.cu"
+    lib = cuda_build.BUILD_DIR / "libmma_ceiling.so"
     src.write_text(SOURCE)
-    subprocess.run([histogram_cuda._nvcc(), *histogram_cuda.NVCC_FLAGS, "-o", str(lib), str(src)],
+    subprocess.run([cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib), str(src)],
                    check=True, capture_output=True, text=True)
     fn = ctypes.CDLL(str(lib)).mma_ceiling
     fn.argtypes = [ctypes.c_int] * 4
@@ -185,7 +185,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         raise SystemExit("mma_ceiling needs a CUDA card")
-    from histogan_tpu_torch.ops import histogram_cuda
+    from histogan_tpu_torch.ops import cuda_build, histogram_cuda
 
     print(_smi("name,power.limit"))
     max_mhz = float(_smi("clocks.max.sm").split()[0])
@@ -202,8 +202,8 @@ def main() -> int:
             print(f"mma_ceiling: {what:24s} {warps:2d} warps/SM: {ms:.4f} ms, "
                   f"{hmma * FLOP_PER_HMMA / ms / 1e9:.1f} TFLOP/s, {ns:.3f} ns = "
                   f"{ns * max_mhz / 1e3:.2f} cycles at {max_mhz:.0f} MHz per HMMA per SMSP")
-    libs = histogram_cuda.build()
-    cuobjdump = Path(histogram_cuda._nvcc()).with_name("cuobjdump")
+    libs = cuda_build.build(("histogram_fwd", "histogram_bwd"))
+    cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
     for name, loop in (("histogram_bwd", "K2's plane loop"), ("histogram_fwd", "K1's tile loop")):
         sass = subprocess.run([str(cuobjdump), "-sass", str(libs[name])], capture_output=True,
                               text=True, check=True).stdout

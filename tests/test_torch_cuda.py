@@ -1,5 +1,6 @@
-"""The histogram kernels (K1 forward, K2 backward) on an NVIDIA GPU
-against their plain torch versions.
+"""The histogram kernels (K1 forward, K2 backward) and the 2x upsample
+kernels (U1 forward, U2 backward) on an NVIDIA GPU against their plain
+torch versions, and U1 and U2 against aten's.
 
 These tests need a CUDA card and nvcc; elsewhere they skip. They import
 no jax, so on a machine with a card and without jax they run without the
@@ -12,7 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from histogan_tpu_torch.ops import histogram_cuda
+import torch.nn.functional as F
+
+from histogan_tpu_torch.ops import histogram_cuda, resize
 from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, histogram_feature
 
 pytestmark = pytest.mark.cuda
@@ -182,6 +185,131 @@ def test_rejects_what_the_kernel_does_not_take(dev):
         histogram_cuda._launch_bwd(packed, g[:, :2], INV_SIGMA2)
     with pytest.raises(ValueError):
         histogram_cuda._launch_bwd(packed, g.cpu(), INV_SIGMA2)
+
+
+# ------------------------------------------------------- the 2x upsample, U1 and U2
+# G's six x-upsamples at 256 px, capacity 16 (channels, input side), and
+# its RGB upsample into 256^2
+UPSAMPLE_SHAPES = [(2048, 4), (1024, 8), (512, 16), (256, 32), (128, 64), (64, 128), (3, 128)]
+
+
+def _ulp_of_largest(t):
+    m = t.double().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(m)) - {torch.float32: 23, torch.bfloat16: 7,
+                                            torch.float64: 52}[t.dtype])
+
+
+def _upsample_inputs(b, c, s, dtype, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((b, c, s, s), generator=gen, device=dev).to(dtype)
+    g = torch.randn((b, c, 2 * s, 2 * s), generator=gen, device=dev).to(dtype)
+    return x, g
+
+
+def _interpolate(x):
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+# U1 keeps the fmas nvcc makes of aten's expression in aten's kernel, so it
+# equals aten's forward bit for bit; its plain version rounds each step
+# alone: up to 2 ulps of the largest value apart, in bf16 one rounding of
+# those. float64: the oracles that check the port on the card run U1/U2.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("b", [16, 1])
+@pytest.mark.parametrize("c,s", UPSAMPLE_SHAPES)
+def test_upsample_kernel_matches_aten(dev, c, s, b, dtype):
+    x, _ = _upsample_inputs(b, c, s, dtype, seed=c * s + b, dev=dev)
+    got = resize.upsample2x_cuda(x)
+    want = _interpolate(x)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+    plain = resize.upsample2x_plain(x)
+    ulps = 1 if dtype == torch.bfloat16 else 2
+    assert (got.double() - plain.double()).abs().max().item() <= ulps * _ulp_of_largest(plain)
+
+
+# U2 gathers 16 taps in fp32 (fp64 for fp64); aten's backward scatters
+# with atomicAdd (in bf16 into bf16, so only fp32 and fp64 are held to it:
+# 1e-6 and 1e-14 of the largest). U2 has no atomics: the same bits on every
+# run, and its plain version's.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("b", [16, 1])
+@pytest.mark.parametrize("c,s", UPSAMPLE_SHAPES)
+def test_upsample_backward_kernel_matches_aten(dev, c, s, b, dtype):
+    x, g = _upsample_inputs(b, c, s, dtype, seed=c * s + b + 1, dev=dev)
+    got = resize.upsample2x_bwd_cuda(g)
+    again = resize.upsample2x_bwd_cuda(g)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, again)
+    assert torch.equal(got, resize.upsample2x_bwd_plain(g))
+    if dtype != torch.bfloat16:
+        x.requires_grad_(True)
+        _interpolate(x).backward(g)
+        rtol = 1e-6 if dtype == torch.float32 else 1e-14
+        assert (got - x.grad).abs().max().item() <= rtol * x.grad.abs().max().item()
+
+
+def test_upsample_counts_each_launch_once(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from histogan_tpu_torch.utils.logging import counters, reset_spans
+
+    x = torch.randn((2, 3, 5, 4), device=dev, requires_grad=True)
+    before = (resize.launches, resize.bwd_launches)
+    reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        y = resize.upsample2x(x)
+        y.sum().backward()  # an expanded gradient, made contiguous by the wrapper
+    assert (resize.launches, resize.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert counters() == {"upsample2x": 1}
+    resize.upsample2x(x.detach())  # no profiler: launched, not counted
+    assert resize.launches == before[0] + 2 and counters() == {"upsample2x": 1}
+    reset_spans()
+    x2 = x.detach().clone().requires_grad_(True)
+    _interpolate(x2).sum().backward()
+    assert torch.allclose(x.grad, x2.grad, rtol=1e-6, atol=0)
+
+
+def test_upsample_rejects_what_the_kernel_does_not_take(dev):
+    x = torch.randn((1, 2, 4, 4), device=dev)
+    before = (resize.launches, resize.bwd_launches)
+    for bad in (x.half(), x.int()):
+        with pytest.raises(TypeError):
+            resize.upsample2x(bad)
+    with pytest.raises(ValueError):
+        resize.upsample2x_cuda(x.cpu())
+    with pytest.raises(ValueError):
+        resize.upsample2x_cuda(x[0])
+    g = torch.randn((1, 2, 8, 8), device=dev)
+    with pytest.raises(TypeError):
+        resize.upsample2x_bwd_cuda(g.half())
+    with pytest.raises(ValueError):
+        resize.upsample2x_bwd_cuda(g[..., :7])
+    with pytest.raises(ValueError):
+        resize.upsample2x_bwd_cuda(g.cpu())
+    misaligned = torch.empty(2 * 64 + 1, device=dev)[1:].view(1, 2, 8, 8)  # 4 bytes off
+    misaligned.copy_(g)
+    with pytest.raises(ValueError):  # contiguous, but U2 reads pairs of 8 bytes
+        resize.upsample2x_bwd_cuda(misaligned)
+    assert (resize.launches, resize.bwd_launches) == before
+
+
+def test_g_forward_at_256_capacity_16_launches_u1_12_times(dev):
+    from histogan_tpu_torch.models.generator import Generator
+
+    torch.manual_seed(0)
+    g = Generator(256, 512, 16).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    styles = torch.randn((1, g.num_layers - 2, 512), generator=gen, device=dev)
+    hists = torch.randn((1, 2, 512), generator=gen, device=dev)
+    noise = torch.rand((1, 256, 256, 1), generator=gen, device=dev)
+    before = resize.launches
+    with torch.no_grad():
+        out = g(styles, hists, noise)
+    assert out.shape == (1, 3, 256, 256) and torch.isfinite(out).all()
+    assert resize.launches - before == 12  # six x upsamples, six RGB ones
 
 
 # ------------------------------------- remat, data parallel, the debug step, the profiler

@@ -17,7 +17,7 @@ import torch
 from histogan_tpu.ops import histogram as jhist
 from histogan_tpu.ops import histogram_pallas as jpallas
 from histogan_tpu_torch.ops import histogram as thist
-from histogan_tpu_torch.ops import histogram_cuda
+from histogan_tpu_torch.ops import cuda_build, histogram_cuda
 
 torch.set_num_threads(1)
 
@@ -157,12 +157,12 @@ def test_no_fallback_off_the_cpu():
 
 
 def test_build_dir_is_beside_the_package():
-    pkg = os.path.dirname(os.path.dirname(histogram_cuda.__file__))
-    assert str(histogram_cuda.BUILD_DIR).startswith(os.path.join(os.path.dirname(pkg), "build"))
-    assert set(histogram_cuda.SOURCES) == {"histogram_fwd", "histogram_bwd"}
-    paths = {name: histogram_cuda.library_path(name) for name in histogram_cuda.SOURCES}
-    for name, src in histogram_cuda.SOURCES.items():
+    pkg = os.path.dirname(os.path.dirname(cuda_build.__file__))
+    assert str(cuda_build.BUILD_DIR).startswith(os.path.join(os.path.dirname(pkg), "build"))
+    assert set(cuda_build.SOURCES) == {"histogram_fwd", "histogram_bwd", "upsample2x"}
+    paths = {name: cuda_build.library_path(name) for name in cuda_build.SOURCES}
+    for name, src in cuda_build.SOURCES.items():
         assert src.is_file()
-        assert paths[name].parent == histogram_cuda.BUILD_DIR
+        assert paths[name].parent == cuda_build.BUILD_DIR
         assert paths[name].name.startswith(f"lib{name}-")  # each keyed on its own source
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 3

@@ -17,6 +17,12 @@ clear the low 13), and by truncation, as the kernels do it (they hand x
 over as hi, and the tensor core reads only the top 19 bits). One-pass
 TF32 (hi.hi alone) must miss the relative gate: that is why the split is
 there. Also the work and bound counts that ``chip_smoke.py`` prints.
+
+Last, the plain versions of the 2x upsample kernels U1 and U2
+(``csrc/upsample2x.cu``; ``ops/resize.py``'s ``upsample2x_plain`` and
+``upsample2x_bwd_plain``) against ``F.interpolate`` and its autograd, and
+U1's against the JAX package's ``upsample2x``; and ``upsample2x`` on a CPU
+tensor, which stays ``F.interpolate`` and launches nothing.
 """
 
 import numpy as np
@@ -24,7 +30,8 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from histogan_tpu_torch.ops import histogram_cuda
+from histogan_tpu.ops import resize as jax_resize
+from histogan_tpu_torch.ops import histogram_cuda, resize
 
 INV_SIGMA2 = 1.0 / (0.02 * 0.02)
 GATE = 1e-5  # chip_smoke.py's KERNEL_TOL_REL: K2 per column, K1 relative
@@ -200,3 +207,81 @@ def test_bound_of_a_single_pixel_is_the_bytes():
     assert ms == pytest.approx(1e3 * (2 * 32 + 3 * 64 * 64 * 4) / 3.35e12, rel=1e-12)
     with pytest.raises(KeyError):
         histogram_cuda.kernel_work("histogram_other", 1, 1)
+
+
+# ragged sizes (1 and odd heights and widths: every edge case of the taps)
+# and G's square ones
+UPSAMPLE_SHAPES = [(1, 1, 1, 1), (2, 3, 1, 5), (1, 4, 3, 7), (2, 8, 4, 4), (1, 2, 16, 16)]
+
+
+def _upsample_inputs(shape, dtype, seed):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).to(dtype)
+    g = torch.from_numpy(rng.standard_normal(
+        (*shape[:2], 2 * shape[2], 2 * shape[3]), dtype=np.float32)).to(dtype)
+    return x, g
+
+
+def _ulp_of_largest(t: torch.Tensor) -> float:
+    """The spacing of t's dtype at max|t|: fp32's 2^-23, bf16's 2^-7 or
+    fp64's 2^-52 of the power of two at or below it."""
+    m = t.double().abs().max().item()
+    return 2.0 ** (np.floor(np.log2(m)) - {torch.float32: 23, torch.bfloat16: 7,
+                                            torch.float64: 52}[t.dtype])
+
+
+def _interpolate(x):
+    return F.interpolate(x, scale_factor=2, mode="bilinear", align_corners=False)
+
+
+# The plain version computes aten's expression with every step rounded
+# alone, aten's CPU kernel in its own order: up to 2 ulps of the largest
+# value apart; in bf16 both round the same fp32 value once.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_upsample2x_plain_matches_interpolate(shape, dtype):
+    x, _ = _upsample_inputs(shape, dtype, seed=sum(shape))
+    got, want = resize.upsample2x_plain(x), _interpolate(x)
+    assert got.dtype == dtype and got.shape == want.shape
+    ulps = 1 if dtype == torch.bfloat16 else 2
+    assert (got.double() - want.double()).abs().max().item() <= ulps * _ulp_of_largest(want)
+
+
+# The gather sums 16 taps in another order than aten's scatter: 1e-6 of
+# the largest in fp32 (8 ulps), 8 ulps in fp64; in bf16 both round once.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_upsample2x_bwd_plain_matches_autograd(shape, dtype):
+    x, g = _upsample_inputs(shape, dtype, seed=sum(shape) + 1)
+    x.requires_grad_(True)
+    _interpolate(x).backward(g)
+    got = resize.upsample2x_bwd_plain(g)
+    assert got.dtype == dtype and got.shape == x.shape
+    gap = (got.double() - x.grad.double()).abs().max().item()
+    ulps = 1 if dtype == torch.bfloat16 else 8
+    assert gap <= ulps * _ulp_of_largest(x.grad)
+
+
+@pytest.mark.parametrize("shape", UPSAMPLE_SHAPES)
+def test_upsample2x_plain_matches_jax(shape):
+    x, _ = _upsample_inputs(shape, torch.float32, seed=sum(shape) + 2)
+    got = resize.upsample2x_plain(x)
+    want = np.asarray(jax_resize.upsample2x(x.permute(0, 2, 3, 1).numpy())).transpose(0, 3, 1, 2)
+    assert np.abs(got.numpy() - want).max() <= 2 * _ulp_of_largest(got)
+
+
+def test_upsample2x_on_the_cpu_is_interpolate():
+    x, g = _upsample_inputs((2, 3, 5, 4), torch.float32, seed=3)
+    before = (resize.launches, resize.bwd_launches)
+    x.requires_grad_(True)
+    y = resize.upsample2x(x)
+    y.backward(g)
+    x2 = x.detach().clone().requires_grad_(True)
+    want = _interpolate(x2)
+    want.backward(g)
+    assert torch.equal(y, want) and torch.equal(x.grad, x2.grad)
+    assert (resize.launches, resize.bwd_launches) == before == (0, 0)
+    with pytest.raises(ValueError):  # the kernel's own entry takes no CPU tensor
+        resize.upsample2x_cuda(x.detach())
+    with pytest.raises(ValueError):
+        resize.upsample2x_bwd_cuda(g)
