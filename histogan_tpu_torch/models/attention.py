@@ -4,6 +4,10 @@
 per selected layer (histoGAN/histoGAN.py:90-106, 594-598). NCHW; the two
 contractions are plain ``torch.einsum``s, as the JAX package computes them
 outside any Pallas kernel.
+
+Traced (``utils/logging.py``), each ``RezeroResidual`` forward is span
+``d.attn`` with its CUDA events (the GP's create-graph forward included;
+the backward runs outside it) and one of counter ``attn``.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ import torch
 from torch import nn
 
 from histogan_tpu_torch.models.layers import TorchConv
+from histogan_tpu_torch.utils.logging import count, span
 
 
 class ImageLinearAttention(nn.Module):
@@ -71,4 +76,6 @@ class RezeroResidual(nn.Module):
         self.fn = Rezero(ImageLinearAttention(chan))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fn(x) + x
+        with span("d.attn", stream=True):
+            count("attn")
+            return self.fn(x) + x

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from histogan_tpu_torch import parallel
+from histogan_tpu_torch.utils.logging import span
 
 
 class VectorQuantize(nn.Module):
@@ -86,5 +87,6 @@ class PermuteToFrom(nn.Module):
 
     def forward(self, x: torch.Tensor, train_stats: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        out, loss = self.fn(x.permute(0, 2, 3, 1), train_stats)
-        return out.permute(0, 3, 1, 2), loss
+        with span("d.vq", stream=True):
+            out, loss = self.fn(x.permute(0, 2, 3, 1), train_stats)
+            return out.permute(0, 3, 1, 2), loss

@@ -17,6 +17,8 @@ from [-sh, sh] and the W offset from [-sw, sw]; cutout's centre on
 [0, h + (1 - ch % 2)) and its clipped box; offset's swapped names
 (``value_h`` rolls W, ``value_v`` rolls H); the flip when u >= 0.5; the
 whole batch augmented when u < prob. The wrapper holds no parameters.
+Traced (``utils/logging.py``), each ``aug_wrapper`` call is span ``d.aug``
+(host time only).
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import dataclasses
 from typing import List, Sequence
 
 import torch
+
+from histogan_tpu_torch.utils.logging import span
 
 
 def _per_sample(f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -149,9 +153,10 @@ def random_hflip(x: torch.Tensor, flip: bool) -> torch.Tensor:
 def aug_wrapper(images: torch.Tensor, draws: AugDraws) -> torch.Tensor:
     """AugWrapper (histoGAN/histoGAN.py:318-331): when the gate is on, the
     flip and DiffAugment on the whole batch, else the images as they are."""
-    if not draws.apply:
-        return images
-    return diff_augment(random_hflip(images, draws.flip), draws.types, draws.values)
+    with span("d.aug"):
+        if not draws.apply:
+            return images
+        return diff_augment(random_hflip(images, draws.flip), draws.types, draws.values)
 
 
 def draw_aug(gen: torch.Generator, coins: torch.Generator, batch: int, h: int, w: int,

@@ -166,3 +166,36 @@ def test_tracing_leaves_the_steps_bit_identical(tmp_path, photos):
     assert m_on == m_off
     assert p_on.keys() == p_off.keys()
     assert all(torch.equal(p_on[k], p_off[k]) for k in p_off)
+
+
+D_OPTIONS = dict(attn_layers=(1,), fq_layers=(2,), aug_prob=1.0)
+
+
+@pytest.mark.parametrize("options", [D_OPTIONS, {}], ids=["d_options", "plain_d"])
+def test_d_options_record_their_spans_and_counter(tmp_path, photos, options):
+    # a GP step's three D calls (fakes, reals inside the GP, G's fakes), each
+    # through the AugWrapper, two attention blocks and one VQ layer
+    t = make_trainer(tmp_path, photos, **options)
+    traced(t.train)
+    table = telemetry.span_table()
+    names = [s.name for s in table]
+    calls = 3 if options else 0
+    assert [names.count(n) for n in ("d.attn", "d.vq", "d.aug")] == [2 * calls, calls, calls]
+    assert telemetry.counters().get("attn", 0) == 2 * calls
+    step = next(i for i, s in enumerate(table) if s.name == "train.step")
+    inside = below(table, step)
+    for s in table:
+        if s.name.startswith("d."):
+            assert s in inside and s.unit == 4 and s.host_ms > 0 and s.stream_ms is None
+    gp = next(i for i, s in enumerate(table) if s.name == "step.gp")
+    assert [s.name for s in below(table, gp)].count("d.attn") == (2 if options else 0)
+
+
+def test_d_options_are_a_shared_no_op_untraced(tmp_path, photos, monkeypatch):
+    entered = []
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: entered.append(a))
+    telemetry.reset_spans()
+    t = make_trainer(tmp_path, photos, **D_OPTIONS)
+    t.train()
+    assert entered == [] and telemetry.span_table() == [] and telemetry.counters() == {}
