@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from histogan_tpu_torch.models.layers import TorchConv
+from histogan_tpu_torch.models.layers import DConv
 from histogan_tpu_torch.utils.logging import count, span
 
 
@@ -32,10 +32,10 @@ class ImageLinearAttention(nn.Module):
         super().__init__()
         self.key_dim, self.value_dim, self.heads = key_dim, value_dim, heads
         self.norm_queries = norm_queries
-        self.to_q = TorchConv(chan, key_dim * heads, 1, bias=False)
-        self.to_k = TorchConv(chan, key_dim * heads, 1, bias=False)
-        self.to_v = TorchConv(chan, value_dim * heads, 1, bias=False)
-        self.to_out = TorchConv(value_dim * heads, chan, 1)
+        self.to_q = DConv(chan, key_dim * heads, 1, bias=False)
+        self.to_k = DConv(chan, key_dim * heads, 1, bias=False)
+        self.to_v = DConv(chan, value_dim * heads, 1, bias=False)
+        self.to_out = DConv(value_dim * heads, chan, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, _, h, w = x.shape

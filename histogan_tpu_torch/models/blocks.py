@@ -15,7 +15,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from histogan_tpu_torch.models.layers import TorchConv, TorchLinear, leaky_relu
+from histogan_tpu_torch.models.layers import DConv, TorchLinear, leaky_relu
 from histogan_tpu_torch.ops.conv2dmod import conv2d_mod
 from histogan_tpu_torch.ops.resize import upsample2x
 from histogan_tpu_torch.utils import inits
@@ -126,12 +126,12 @@ class DiscriminatorBlock(nn.Module):
 
     def __init__(self, input_channels: int, filters: int, downsample: bool = True):
         super().__init__()
-        self.conv_res = TorchConv(input_channels, filters, 1)
+        self.conv_res = DConv(input_channels, filters, 1)
         self.net = nn.Sequential(
-            TorchConv(input_channels, filters, 3, padding=1), nn.LeakyReLU(0.2),
-            TorchConv(filters, filters, 3, padding=1), nn.LeakyReLU(0.2),
+            DConv(input_channels, filters, 3, padding=1), nn.LeakyReLU(0.2),
+            DConv(filters, filters, 3, padding=1), nn.LeakyReLU(0.2),
         )
-        self.downsample = (TorchConv(filters, filters, 3, stride=2, padding=1)
+        self.downsample = (DConv(filters, filters, 3, stride=2, padding=1)
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from histogan_tpu_torch.ops.conv2d import conv2d
 from histogan_tpu_torch.utils import inits
 
 
@@ -49,6 +50,16 @@ class TorchConv(nn.Conv2d):
         inits.kaiming_normal_(self.weight, generator)
         if self.bias is not None:
             inits.torch_default_bias_(self.bias, self.weight[0].numel(), generator)
+
+
+class DConv(TorchConv):
+    """The discriminator's TorchConv: the same parameters, names and
+    initialisation, run through ``ops/conv2d.py::conv2d``, whose double
+    backward (the gradient penalty's) takes the weight gradient from the
+    layer's own weight-gradient kernel."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv2d(x, self.weight, self.bias, self.stride, self.padding)
 
 
 class InstanceNorm(nn.Module):

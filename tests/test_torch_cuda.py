@@ -1,6 +1,7 @@
 """The histogram kernels (K1 forward, K2 backward) and the 2x upsample
 kernels (U1 forward, U2 backward) on an NVIDIA GPU against their plain
-torch versions, and U1 and U2 against aten's.
+torch versions, U1 and U2 against aten's, and D's convolutions under the
+gradient penalty (``ops/conv2d.py``) against aten's double backward.
 
 These tests need a CUDA card and nvcc; elsewhere they skip. They import
 no jax, so on a machine with a card and without jax they run without the
@@ -411,3 +412,52 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
                for k, w in one["metrics"][0].items())
     assert _rel(two[0]["state"], one["state"]) <= STEP_PARAM_REL
     assert two[0]["launches"] == {"histogram_fwd": 1, "histogram_bwd": 1}
+
+
+# ------------------------------------- D's convolutions under the gradient penalty
+# (ops/conv2d.py: the double backward's weight gradient from the layer's own wgrad)
+def _gp_grads(d, real):
+    from histogan_tpu_torch.ops import losses
+
+    logits, gp = losses.shared_forward_gradient_penalty(lambda x: d(x)[0], real)
+    loss = torch.mean(torch.relu(1.0 - logits)) + gp
+    return gp.detach(), torch.autograd.grad(loss, list(d.parameters()))
+
+
+def test_gp_d_gradients_at_256_capacity_16_match_aten_within_fp32_rounding(dev):
+    import copy
+
+    from torch import nn
+    from torch.profiler import ProfilerActivity, profile
+
+    from histogan_tpu_torch.models.discriminator import Discriminator
+    from histogan_tpu_torch.models.layers import DConv
+
+    torch.manual_seed(0)
+    d = Discriminator(256, 16).to(dev)
+    real = torch.rand((4, 3, 256, 256), generator=torch.Generator().manual_seed(1)).to(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        gp, ours = _gp_grads(d, real)
+        torch.cuda.synchronize()
+    weights = [e.input_shapes[1] for e in prof.events() if e.name == "aten::convolution"]
+    assert weights and all(len(w) == 4 and max(w[2:]) <= 3 for w in weights), weights
+    forward = DConv.forward
+    DConv.forward = nn.Conv2d.forward  # aten's own double backward
+    try:
+        gp_n, native = _gp_grads(d, real)
+        gp64, exact = _gp_grads(copy.deepcopy(d).double(), real.double())
+    finally:
+        DConv.forward = forward
+    assert torch.equal(gp, gp_n)  # the GP's first backward is the same aten call
+
+    def rel(a, b):
+        return ((a.double() - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    gap = max(rel(a, n.double()) for a, n in zip(ours, native))
+    ours_err = max(rel(a, e) for a, e in zip(ours, exact))
+    native_err = max(rel(n, e) for n, e in zip(native, exact))
+    print(f"worst leaf: ours vs aten {gap:.3e}; to float64: ours {ours_err:.3e}, "
+          f"aten {native_err:.3e}")
+    # another summation order in fp32: no further from float64 than aten's own
+    assert ours_err <= 2 * native_err + 1e-6

@@ -2,7 +2,8 @@
 on the CPU at a toy size: untraced nothing is recorded and no
 ``record_function`` is entered; under a ``torch.profiler`` each training
 step is one ``train.step`` span holding its data, phase, update and
-readback spans (the GP's only on a GP step), the readbacks are counted,
+readback spans (the GP's only on a GP step), the readbacks and the GP's
+double backwards through D's convolutions are counted,
 the spans lie in the Chrome trace as user annotations around their ops,
 ``ProfilerHook`` leaves the table holding its steps, and tracing leaves the
 step's numbers bit for bit as they are."""
@@ -16,6 +17,7 @@ from PIL import Image
 from torch.profiler import ProfilerActivity, profile
 
 from histogan_tpu_torch.cli.histogan import image_hist
+from histogan_tpu_torch.models.layers import DConv
 from histogan_tpu_torch.ops.histogram import RGBuvHistBlock
 from histogan_tpu_torch.train.trainer import Trainer
 from histogan_tpu_torch.utils import logging as telemetry
@@ -95,7 +97,8 @@ def test_four_steps_from_a_gp_step(tmp_path, photos, sync_every, syncs):
     for s in table:
         if s.name in ("step.update", "step.gp"):
             assert table[s.parent].name in ("step.d_phase", "step.g_phase")
-    assert telemetry.counters() == {"syncs": syncs}
+    # the GP step's double backward through each of D's 19 convolutions
+    assert telemetry.counters() == {"syncs": syncs, "conv_dbwd": 19}
 
 
 @pytest.mark.parametrize("call", ["image_hist", "evaluate"])
@@ -189,6 +192,19 @@ def test_d_options_record_their_spans_and_counter(tmp_path, photos, options):
             assert s in inside and s.unit == 4 and s.host_ms > 0 and s.stream_ms is None
     gp = next(i for i, s in enumerate(table) if s.name == "step.gp")
     assert [s.name for s in below(table, gp)].count("d.attn") == (2 if options else 0)
+
+
+@pytest.mark.parametrize("gp", [True, False], ids=["gp_step", "plain_step"])
+@pytest.mark.parametrize("options", [{}, dict(attn_layers=(1,))], ids=["plain_d", "attn_d"])
+def test_conv_dbwd_counts_each_d_convolution_once_a_gp_call(tmp_path, photos, options, gp):
+    # 5 blocks x 3 + 4 downsamples; the attention's two blocks add 4 1x1 each
+    t = make_trainer(tmp_path, photos, **options)
+    if not gp:
+        t.steps = t.state.step = 5
+    traced(t.train)
+    n_convs = sum(isinstance(m, DConv) for m in t.state.D.modules())
+    assert n_convs == 19 + 8 * bool(options)
+    assert telemetry.counters().get("conv_dbwd", 0) == (n_convs if gp else 0)
 
 
 def test_d_options_are_a_shared_no_op_untraced(tmp_path, photos, monkeypatch):
