@@ -1,10 +1,12 @@
-"""Smoke run of the PyTorch port (histogan_tpu_torch) on one NVIDIA GPU.
+"""Checks of the PyTorch port (histogan_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py                  # the smoke run
-    python3 chip_smoke.py --profile DIR    # and a torch.profiler view of the train
-                                           # step, its tables written under DIR
+    python3 chip_smoke.py
 
-Phases, each printing its lines:
+The card's check gate: every phase holds a path of the port to a plain
+version, to the CPU, to the JAX package's files or to itself, and raises on
+the first failed check. Speed is measured by ``python -m benchmark.run``;
+this script times only what no benchmark cell can show, a kernel alone
+(phases 3, 6 and U). Phases, each printing its lines:
   1. device: needs CUDA; prints the card's name and power limit (nvidia-smi);
   2. build: compiles both histogram kernels from histogan_tpu_torch/csrc
      (one nvcc each, started together), prints their ptxas reports, holds
@@ -18,7 +20,7 @@ Phases, each printing its lines:
   4. slice: HistoGAN sampling at 256 px, capacity 16, latent 512, style
      depth 8, batch 16: weights from seed 0 written as a reference-layout
      .pt and loaded back, one 384x512 target image, 8 x 8 tiles = 64
-     samples through the CLI's per-target function;
+     samples through the CLI's per-target function (K1 and U1 launched);
   5. reference: two of those samples recomputed on the CPU with the same
      weights, latents and noise;
   6. backward: K2 against its plain version, timed and bounded as in
@@ -36,12 +38,13 @@ Phases, each printing its lines:
   8. train: Trainer.set_data_src on 64 written images and Trainer.train
      for steps 0-9 at 256 px, capacity 16, latent 512, style depth 8,
      batch 16, fp32, on the default device_dataset 'auto' (the batch source
-     printed and held to DeviceDataSource, as in every phase_train run);
+     held to DeviceDataSource, as in every phase_train run): finite
+     losses, one K1 and one K2 a step, U1 and U2 launched, S/H/G/D moved;
      then save, load into a new Trainer and one more step;
   F1. FID after phase 8's steps: Trainer.calculate_fid(256) with the seeded
-     random-features extractor, its seconds and value with its provenance,
-     again at the same step (the same value to FID_REPEAT_RTOL), and the
-     card's pool3 features against the CPU's on 2 images at 299 px;
+     random-features extractor, its value with its provenance, again at the
+     same step (the same value to FID_REPEAT_RTOL), and the card's pool3
+     features against the CPU's on 2 images at 299 px;
   8b. the same in bf16 (precision, opt_state_dtype and ema_dtype 'bf16'),
      with one more step on the EMA schedule, whose stochastically rounded
      EMA is held to the exact fp32 EMA; the dtypes of the weights, the EMA
@@ -49,27 +52,23 @@ Phases, each printing its lines:
   DD1. the loaders: phase 8's 10 steps on the streaming loader
      (device_dataset False: pinned batches, the next one copied on a side
      stream behind the step), and with sync_every 4 on each source; per run
-     the plain steps' imgs/s, the device's busy share over two profiled
-     plain steps, K1 and K2 launches (exactly one each a step); then a NaN
-     injected on the card is read at the next sync step and rolls the
-     weights back to checkpoint 0;
-  DD1r. R2b's host-bound cell (reHistoGAN bf16 at 2 x 8) on both sources,
-     each syncing every step and every 4th: one trainer per source, timed
-     windows of 3 plain steps taken in turn and back (ABBA), K1 and K2
-     exactly 16 and 8 a step;
+     the steps that read their metrics back and exactly one K1 and one K2
+     a step; then a NaN injected on the card is read at the next sync step
+     and rolls the weights back to checkpoint 0;
+  DD1r. reHistoGAN bf16 at 2 x 8 on both sources, each syncing every step
+     and every 4th: K1 and K2 exactly 16 and 8 a step, the metrics read
+     back on the sync steps;
   DD2. residency: a DeviceDataSource over a synthetic 4319 x 256 x 256 x 3
      uint8 cache and a 4319 x 3 x 64 x 64 pool (the reference's landscape
-     set): torch.cuda.memory_allocated before and after, ms per batch at
-     16 x 1, at 2 x 8 with self_hist and include_g_images and with aug_prob
-     0.5, each batch held to numpy indexing of its draws and the on-card
-     crop to the CPU's crop_resize_u8;
+     set): torch.cuda.memory_allocated grows by their bytes; at 16 x 1, at
+     2 x 8 with self_hist and include_g_images and with aug_prob 0.5 a
+     batch behind queued device work does not wait for it, and each batch
+     is held to numpy indexing of its draws and the on-card crop to the
+     CPU's crop_resize_u8;
   D1. the discriminator's options: phase 8's 10 steps, save, load and one
      more step with aug_prob 0.25 (color, translation, cutout, offset),
      attention at layers 1-2 and a VQ codebook of 256 codes at layer 3,
-     fp32; the codebook bit for bit across the save and load, the plain
-     steps' imgs/s beside phase 8's, the GP steps' ms and the peak memory,
-     each attention pair's and the VQ layer's forward and backward alone,
-     and (torch.profiler) the GP step's device busy time;
+     fp32; the codebook bit for bit across the save and load;
   D1b. the same in bf16 (precision, opt_state_dtype, ema_dtype) with VQ
      at layer 8, the last block: the only VQ placement the JAX package
      runs under bf16 (the port refuses the others);
@@ -95,33 +94,31 @@ Phases, each printing its lines:
      8, skip connections to the GAN head: weights from seed 0 written as a
      reference-layout .pt; ``rehistogan-torch``'s train_from_folder
      (generate=True) toward a target JPEG, a target .npy and, with
-     sampling, a pool .npy; ms per recolored image at batch 1 and imgs/s of
-     RecoloringTrainer.evaluate at 16 images; the card's recolor against
-     the CPU's;
+     sampling, a pool .npy; RecoloringTrainer.evaluate at 16 images; the
+     card's recolor against the CPU's;
   R2. recoloring training: RecoloringTrainer.set_data_src on 64 written
      images and steps 0-9 at batch 2 x accumulation 8, fp32, then save,
      load into a new trainer and one more step; K1 and K2 launches per
-     step; the rate at batch 16 x accumulation 1 as well;
+     step;
   R3. card vs CPU: the recoloring step-0 step at full width, batch 2,
      with and without the GP, in phase 9's gate forms (the GP step also
      pinned);
-  R1b. the recolor under --precision bf16 through train_from_folder, its ms
-     per photo, and the bf16 recolor held to the fp32 one on the card;
+  R1b. the recolor under --precision bf16 through train_from_folder, and
+     the bf16 recolor held to the fp32 one on the card;
   R4. full-resolution output: train_from_folder(generate=True) with
      --upsampling_output True --upsampling_method BGU on a 384x512 photo,
      then the CLI's process_image on that photo and a 200x180 one with the
      pyramid, BGU on the scipy and on the native backend, downscaling, and
      --post_recoloring, on a card and a CPU trainer whose recolors take one
      noise; each card file at the size JAX's evaluate writes, each mode's
-     final image from the card's recolor held to the CPU's; each mode's
-     seconds beside process_image's without post-processing; BGU on the
-     native solver held to BGU on scipy (BGU_NATIVE_TOL), each fit's
-     seconds and the native solver's iterations and residual per channel;
+     final image from the card's recolor held to the CPU's; BGU on the
+     native solver held to BGU on scipy (BGU_NATIVE_TOL), with the native
+     solver's iterations and residual per channel;
   H1. the pool CLIs: histogan-create-hist-data-torch on 8 photos (K1 8
      times at (1, 250^2)) and histogan-create-hist-sample-torch on one (K1
      once at (1, 150^2)), each held to the same command with --device cpu;
   R2b. R2's 10 + 1 steps under precision and opt_state_dtype 'bf16', the
-     dtypes checked across the save and load, imgs/s beside R2's;
+     dtypes checked across the save and load;
   R3b. the recoloring step-0 step under bf16 against fp32 on the card (256
      px) and against bf16 on the CPU (BF16_CPU_SIZE px), in phase 9b's
      gates (each loss, each tensor's gradient cosine).
@@ -131,10 +128,6 @@ Phases, each printing its lines:
      photo and draws: the start render, the step-0 losses and gradients,
      also with the card's kinks pinned on the CPU; then 50 card steps
      lower the reconstruction loss;
-  P2. projection steps/s on the card under the JAX bench's names
-     (projection_{z_space,style_space,z_space_vgg}_steps_per_sec_256px),
-     perf_out's window over 200 steps, one run each; with --profile one
-     profiled step of each (device busy ms and share);
   P3. histogan-projection-gaussian-torch and -to-latent-torch through
      main([...]) on a saved flagship checkpoint (20 steps, --save_every 10),
      then --generate toward a JPEG, a .npy and a folder, and (gaussian)
@@ -151,13 +144,11 @@ Phases, each printing its lines:
      moves between runs (the card's atomics; the step without remat runs
      three times, and each gap and floor is a median), K1 and K2 launched
      alike;
-     one more plain and GP+PL step each way, timed, with
-     torch.cuda.max_memory_allocated;
      R5, one bf16 recoloring GP step at the CLI's defaults with remat and
      without (the bf16 cast's functional_call under the checkpoint): its
-     metrics to 1e-2, its D and G gradients as RM's; R512,
-     the JAX package's 512 px recipe (capacity 16, batch 8, bf16, bf16
-     DiffGrad state) with and without remat, each step's ms and peak;
+     metrics to 1e-2, its D and G gradients as RM's; R512, the JAX
+     package's 512 px recipe (capacity 16, batch 8, bf16, bf16 DiffGrad
+     state), a plain and a GP+PL step with and without remat, finite;
   ranks. tools/dp_step.py spawns 2 ranks on the one card over gloo (NCCL
      takes one rank a GPU), once, for the cases of DP, FS, FS512 and DS;
   DP. data parallel at a global batch of 8 (256 px, capacity 16): 3 pinned
@@ -165,39 +156,37 @@ Phases, each printing its lines:
      0's D losses to 5e-5 and D's step-0 gradient to 1e-5 (before any
      update), the rest to bounds on the GAN's drift (DP_G_METRIC_RTOL,
      DP_DRIFT_*), the ranks' parameters bitwise equal, K1 and K2 on every
-     rank, each step's ms, each rank's state bytes and peak;
+     rank;
   FS. DP's case with param_sharding='fsdp' (parallel/fsdp.py): DP's gates
      against DP's one-process runs, the gathered state bitwise equal on
-     both ranks, K1 and K2 once a step on each, each rank's state (under 0.6
-     of DP's), peak and ms beside DP's; then ``torchrun --nproc_per_node 1
+     both ranks, K1 and K2 once a step on each, each rank's state under 0.6
+     of DP's; then ``torchrun --nproc_per_node 1
      -m histogan_tpu_torch.cli.histogan ... --num_devices 1 --param_sharding
      fsdp`` over NCCL for 2 steps (capacity 4: its step-0 checkpoint stays
      small), whose model_0.pt loads into a one-process replicated Trainer;
   FS512. R512's recipe (512 px, capacity 16, bf16, bf16 DiffGrad state)
      with remat, sharded over the 2 ranks at a global batch of 8, a plain
      and a GP+PL step: finite metrics, the ranks' gathered state alike, K1
-     and K2 on each; per rank and step the state bytes, the peak, the
-     phases' peak apart from DiffGrad's updates', beside R512's;
+     and K2 on each;
   DS. the device dataset's "sharded" placement: DD2's cache and pool on
      the 2 ranks under a per-device budget of half their bytes plus 1 MiB,
      ceil(4319 / 2) rows a rank, the ranks' batches side by side bit for
-     bit the replicated source's at DD2's three configurations, ms per
-     batch beside DD2's;
+     bit the replicated source's at DD2's three configurations;
   DB. checkify_step around a plain 256 px batch 16 step passes and sees the
-     backward's ops (convolution_backward) on the card, with its seconds
-     beside the step's; with one D weight NaN it raises naming the op;
+     backward's ops (convolution_backward) on the card; with one D weight
+     NaN it raises naming the op;
   PF. Trainer.enable_profiling(1, 2) on a 3-step run writes a Chrome trace
      of steps 1-2 holding K1's and K2's kernels.
-DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P2, P3, RM, ranks, DP,
-FS, FS512, DS, DB and PF run after phase 8b,
-before the phases that run steps on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the recoloring shapes
-too: (1, 64^2), a recolor target; (2, 64^2), the loss; K1 at (2, 64^2) on
-the hist-of-hist input, a histogram read as an image; and K1 at (1, 250^2),
-a pool entry.
-Then one JSON line with the kernels, and last the result line. Any failed
-check raises, so the script exits non-zero and prints no result. The whole
-run, the kernels' builds included, is to end within 1200 s: measurements
-are cut before checks are.
+DD1, DD2, D1, D1b, D1r, R1, R1b, R4, H1, R2, R2b, P3, RM, ranks, DP, FS,
+FS512, DS, DB and PF run after phase 8b, before the phases that run steps
+on the CPU; D1c runs after phase 9. Phases 3 and 6 hold K1 and K2 at the
+recoloring shapes too: (1, 64^2), a recolor target; (2, 64^2), the loss;
+K1 at (2, 64^2) on the hist-of-hist input, a histogram read as an image;
+and K1 at (1, 250^2), a pool entry.
+Each phase prints its seconds, and the run its total. Then one JSON line
+with the kernels, and last the result line. Any failed check raises, so the
+script exits non-zero and prints no result. The whole run, the kernels'
+builds included, is to end within 1200 s.
 """
 
 from __future__ import annotations
@@ -411,6 +400,14 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, then the phase's seconds (the run's 1200 s budget)."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"seconds: phase {phase} {time.perf_counter() - t0:.2f}")
+    return out
+
+
 def time_ms(fn, reps: int) -> float:
     for _ in range(3):
         fn()
@@ -515,11 +512,10 @@ def phase_build(histogram_cuda) -> dict:
     cuobjdump)."""
     from histogan_tpu_torch.ops import cuda_build
 
-    t0 = time.perf_counter()
     libs = cuda_build.build(("histogram_fwd", "histogram_bwd"))
     for name in libs:
         histogram_cuda._library(name)
-    print(f"build: {', '.join(sorted(libs))} in {time.perf_counter() - t0:.2f} s")
+    print(f"build: {', '.join(sorted(libs))}")
     hmma = {}
     cuobjdump = Path(cuda_build.nvcc()).with_name("cuobjdump")
     for name, lib in sorted(libs.items()):
@@ -672,7 +668,6 @@ def phase_sampling(histogram_cuda, dev, smi):
     work = WORK / "sampling"
     cfg = dict(FLAGSHIP, batch_size=16, hist_resizing="interpolation", hist_insz=150,
                hist_bin=64, trunc_psi=0.75, seed=0)
-    t0 = time.perf_counter()
     src = Trainer("chip_smoke", work / "results", work / "models", device="cpu", **cfg)
     src.init_GAN()
     pt = work / "weights.pt"
@@ -683,24 +678,16 @@ def phase_sampling(histogram_cuda, dev, smi):
     check(skipped == [], f"every key of the written .pt loads (skipped {skipped[:4]})")
     n_params = sum(p.numel() for m in model.models().values() for p in m.parameters())
     print(f"slice: weights seed 0, {n_params} parameters (S/H/G/D + EMA), "
-          f".pt {pt.stat().st_size} bytes written and loaded in "
-          f"{time.perf_counter() - t0:.2f} s")
+          f".pt {pt.stat().st_size} bytes written and loaded")
 
     img = np.random.default_rng(1).random((384, 512, 3), dtype=np.float32)
     hist_block = RGBuvHistBlock(insz=150, h=64, resizing="interpolation",
                                 method="inverse-quadratic", sigma=0.02)
     tiles = 8
-    sample_target(model, hist_block, image=img, num_image_tiles=tiles)  # warm-up, resolves av
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts(histogram_cuda)
-    t0 = time.perf_counter()
-    out = sample_target(model, hist_block, image=img, num_image_tiles=tiles)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    out = sample_target(model, hist_block, image=img, num_image_tiles=tiles)  # resolves av
     launches = histogram_cuda.launches
     up_launches = resize.launches
-    peak = torch.cuda.max_memory_allocated()
     check(out.shape == (tiles * tiles, 256, 256, 3), f"output shape {out.shape}")
     check(bool(np.isfinite(out).all()), "output finite")
     check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output in [0, 1]")
@@ -716,12 +703,9 @@ def phase_sampling(histogram_cuda, dev, smi):
         hist_plain = normalise(histogram_cuda.hist_core_reference(packed, INV_SIGMA2))
     herr = (hist_path - hist_plain).abs().max().item()
     check(herr <= KERNEL_TOL_ABS, f"target histogram max|kernel-plain| {herr:.3e} <= {KERNEL_TOL_ABS}")
-    rate = tiles * tiles / dt
-    print(f"slice: {tiles * tiles} samples 256x256 in {dt:.4f} s = {rate:.2f} imgs/s "
-          f"(fp32, {tiles * tiles // cfg['batch_size']} G chunks of {cfg['batch_size']}; "
-          f"histogram kernel launches {launches}, U1 {up_launches}; target hist max|d| "
-          f"{herr:.3e}; "
-          f"peak {peak} bytes) on {smi}")
+    print(f"slice: {tiles * tiles} samples 256x256 (fp32, {tiles * tiles // cfg['batch_size']} "
+          f"G chunks of {cfg['batch_size']}; histogram kernel launches {launches}, U1 "
+          f"{up_launches}; target hist max|d| {herr:.3e}) on {smi}")
 
     # ---- 5. two samples against the CPU with the same weights and inputs
     rng = np.random.default_rng(2)
@@ -859,12 +843,11 @@ def check_ema_step(t, tag: str) -> None:
           f"stored {ema[0].dtype}")
 
 
-def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[dict] = None,
-                fp32_rate: Optional[float] = None, tag: Optional[str] = None):
+def phase_train(histogram_cuda, smi, policy: Optional[dict] = None, tag: Optional[str] = None):
     """Phase 8 (fp32) or, with ``policy`` (BF16), phase 8b; with the
     discriminator's options in ``policy`` (D_OPTIONS, D_OPTIONS_BF16) and
-    a ``tag``, D1 and D1b: the codebook across the save and load, the GP
-    step's device time and the attention and VQ layers' times too."""
+    a ``tag``, D1 and D1b, which also hold the codebook across the save
+    and load. Returns {kernel: launches}."""
     from histogan_tpu_torch.ops import resize
     from histogan_tpu_torch.train.trainer import Trainer
 
@@ -880,33 +863,23 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
     t = Trainer("train", work / "results", work / "models", device=CARD, **cfg)
     t.init_GAN()
     before = {k: v.detach().clone() for k, v in t.reference_state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
     reset_counts(histogram_cuda)
-    t0 = time.perf_counter()
     t.set_data_src(str(data))
-    pool_s = time.perf_counter() - t0
     pool_launches = histogram_cuda.launches
     source = type(t.loader).__name__
     print(f"{tag}: batch source {source} (device_dataset {t.device_dataset!r})")
     check(source == "DeviceDataSource", f"{tag}: the default 'auto' holds the data on the card")
-    step_ms = []
     for step in range(10):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         m = t.train()
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
         flags = [name for name, on in (("GP", step % 4 == 0), ("PL", step % 32 == 0),
                                        ("EMA reset", step % 1000 == 2),
                                        ("save+evaluate", step == 0)) if on]
-        print(f"{tag}: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
+        print(f"{tag}: step {step} [{', '.join(flags) or 'plain'}] "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
     counts = {"histogram_fwd": histogram_cuda.launches, "histogram_bwd": histogram_cuda.bwd_launches,
               "upsample2x_fwd": resize.launches, "upsample2x_bwd": resize.bwd_launches}
-    peak = torch.cuda.max_memory_allocated()
     check(counts["histogram_fwd"] - pool_launches == 10 and counts["histogram_bwd"] == 10,
           f"one K1 and one K2 a step on the {label} training path: {counts} with "
           f"{pool_launches} K1 in the pool build")
@@ -918,32 +891,16 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
         check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
     del before
     check_dtypes(t, policy)
-    rate = 3 * cfg["batch_size"] / (sum(step_ms[5:8]) / 1e3)
-    versus = "" if fp32_rate is None else f" against {fp32_rate:.2f} imgs/s fp32 in phase 8"
-    print(f"{tag}: pool of 64 images in {pool_s:.2f} s; steps 5-7 (plain) "
-          f"{step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} imgs/s "
-          f"(batch 16, {label}){versus}; peak {peak} bytes; launches {counts} on {smi}")
-    print(f"{tag}: K1 launches {pool_launches} in the pool build, "
-          f"{counts['histogram_fwd'] - pool_launches} in the 10 steps; K2 launches "
-          f"{counts['histogram_bwd']} in the 10 steps")
-    options = bool(policy.get("attn_layers") or policy.get("fq_layers"))
-    if options:
-        print(f"{tag}: GP steps 0/4/8 {step_ms[0]:.2f}/{step_ms[4]:.2f}/{step_ms[8]:.2f} ms "
-              f"(step 0 with PL, save and evaluate); options {json.dumps(d_keys(policy))}")
-        option_ops_ms(t, tag)
+    print(f"{tag}: 10 steps at batch 16, {label}; K1 launches {pool_launches} in the pool "
+          f"build, {counts['histogram_fwd'] - pool_launches} in the 10 steps; K2 launches "
+          f"{counts['histogram_bwd']} in the 10 steps; launches {counts} on {smi}")
+    if policy.get("attn_layers") or policy.get("fq_layers"):
+        print(f"{tag}: options {json.dumps(d_keys(policy))}")
     if policy.get("ema_dtype") == "bf16":
         check_ema_step(t, tag)
 
     if tag == "train":  # F1: FID after phase 8's steps
-        t0 = time.perf_counter()
-        phase_fid(t, smi)
-        print(f"seconds: phase F1 {time.perf_counter() - t0:.2f}")
-
-    prefix = "" if tag == "train" else tag.replace("train ", "").replace(" ", "_") + "_"
-    if profile is not None:
-        profile_steps(t, profile, prefix)
-    elif options:  # the GP step's device time, also without --profile: one profiled step
-        profile_fns({"gp": train_step_fn(t, True, False)}, WORK / "prof", prefix, timed=0)
+        timed("F1", phase_fid, t, smi)
 
     # save, load into a new Trainer, one more step
     book = {k: v.detach().clone() for k, v in t.state.D.named_buffers()}
@@ -974,146 +931,13 @@ def phase_train(histogram_cuda, smi, profile: Optional[Path], policy: Optional[d
           + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
     del r
     torch.cuda.empty_cache()
-    return counts, rate, peak
+    return counts
 
 
 def d_keys(policy: dict) -> dict:
     """The discriminator's options in ``policy``."""
     return {k: list(v) if isinstance(v, tuple) else v for k, v in policy.items()
             if k in D_OPTIONS}
-
-
-def train_step_fn(t, gp: bool, pl: bool):
-    """One train step of trainer ``t`` with the given flags on one batch,
-    with fresh draws each call."""
-    from histogan_tpu_torch.data.device_source import take_batch
-    from histogan_tpu_torch.train.steps import draw_step, train_step
-
-    batch = take_batch(t.loader, None, t.device)
-    return lambda: train_step(t.state, batch, draw_step(t.gen, t.cfg, t.device, pl,
-                                                        coins=t.coin_gen), t.cfg, gp, pl)
-
-
-def profile_steps(t, out: Path, prefix: str = "") -> None:
-    """Times and a torch.profiler view of the flagship step by its flags:
-    plain, GP (every 4th), GP+PL (step 0 of every 32); the operator tables
-    go to ``out``, their names led by ``prefix``."""
-    profile_fns({"plain": train_step_fn(t, False, False), "gp": train_step_fn(t, True, False),
-                 "gp+pl": train_step_fn(t, True, True)}, out, prefix)
-
-
-def option_ops_ms(t, tag: str) -> None:
-    """Forward and backward (to the input and the weights) of each
-    attention pair and VQ layer of ``t``'s D alone, at the inputs a batch
-    of 16 gives them, in the step's compute dtype (CUDA events; the VQ
-    layer on a copy, updating its codebook as the step does)."""
-    from histogan_tpu_torch.train.steps import cast_module, compute_dtype
-
-    D, dtype = t.state.D, compute_dtype(t.cfg)
-    x = torch.rand(16, 3, t.cfg.image_size, t.cfg.image_size, device=t.device, dtype=dtype)
-    parts = []
-    with torch.no_grad():
-        for ind, (block, attn, vq) in enumerate(zip(D.blocks, D.attn_blocks, D.quantize_blocks)):
-            x = cast_module(block, dtype)(x)
-            if attn is not None:
-                parts.append((f"attention layer {ind + 1}", attn, x.clone()))
-                x = cast_module(attn, dtype)(x)
-            if vq is not None:
-                parts.append((f"VQ layer {ind + 1}", copy.deepcopy(vq), x.clone()))
-                x = vq(x)[0]
-    out = []
-    for name, module, inp in parts:
-        inp.requires_grad_(True)
-        wrt = [inp, *module.parameters()]
-
-        def call(module=module, inp=inp, wrt=wrt):
-            if isinstance(module, torch.nn.Sequential):  # an attention pair
-                y, q = cast_module(module, dtype)(inp), 0.0
-            else:
-                y, q = module(inp, True)
-            return torch.autograd.grad(y.float().sum() + q, wrt)
-
-        out.append(f"{name} {tuple(inp.shape)} {time_ms(call, 5):.3f} ms")
-    print(f"{tag}: forward + backward alone (CUDA events, {dtype}): " + "; ".join(out))
-
-
-def trace_device_ms(trace: Path, window: str) -> dict:
-    """Device activity in a Chrome trace, within the host annotation named
-    ``window`` (which ends after a synchronize): the kernels, copies and
-    sets that start inside it, their summed time, the union of their
-    intervals (busy time: what overlaps on several streams counts once),
-    the streams, and the events of that kind outside the window."""
-    events = json.loads(trace.read_text())["traceEvents"]
-    call = next(e for e in events if e.get("cat") == "user_annotation" and e["name"] == window)
-    t0_us, t1_us = call["ts"], call["ts"] + call["dur"]
-    device = [e for e in events if e.get("ph") == "X"
-              and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    inside = [e for e in device if t0_us <= e["ts"] <= t1_us]
-    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in inside)
-    union, end = 0.0, -math.inf
-    for a, b in spans:
-        if b > end:
-            union += b - max(a, end)
-            end = b
-    return {"sum_ms": sum(e["dur"] for e in inside) / 1e3, "busy_ms": union / 1e3,
-            "events": len(inside), "outside": len(device) - len(inside),
-            "streams": len({e.get("args", {}).get("stream") for e in inside})}
-
-
-def profile_fns(fns: dict, out: Path, prefix: str, timed: int = 3) -> dict:
-    """For each {name: step function}: a warm-up (when ``timed``), ``timed``
-    host-clock runs and one under torch.profiler. The device's busy time is the union of the kernel,
-    copy and set intervals of that call in the profiler's trace
-    (``trace_device_ms``); the operator table goes to ``out`` and the
-    kernels with the most device time are printed. Returns {name: (device
-    busy ms, busy share)}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    out.mkdir(parents=True, exist_ok=True)
-    result = {}
-    for name, fn in fns.items():
-        if timed:
-            fn()
-        torch.cuda.synchronize()
-        ms = []
-        for _ in range(timed):
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ms.append(1e3 * (time.perf_counter() - t0))
-        if ms:
-            print(f"profile: {prefix}{name} step {' / '.join(f'{x:.2f}' for x in ms)} ms")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            with record_function("profiled_call"):
-                fn()
-                torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        events = prof.key_averages()
-        (out / f"profile_{prefix}{name.replace('+', '_')}.txt").write_text(
-            events.table(sort_by="self_device_time_total", row_limit=40))
-        trace = WORK / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        dev = trace_device_ms(trace, "profiled_call")
-        trace.unlink()
-        # the kernels by name: device-side rows only (the operators' rows
-        # and the device copies of host annotations carry the same time again)
-        host_keys = {e.key for e in events if e.device_type == DeviceType.CPU}
-        kernels = [e for e in events if e.device_type == DeviceType.CUDA
-                   and e.key not in host_keys and e.key != "Command Buffer Full"]
-        table_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:10]
-        hist = [e for e in kernels if "hist_" in e.key]  # K1's two kernels and K2
-        print(f"profile: {prefix}{name} wall {wall_us / 1e3:.2f} ms, device busy (union of "
-              f"{dev['events']} kernel/copy intervals on {dev['streams']} streams) "
-              f"{dev['busy_ms']:.2f} ms, busy share {1e3 * dev['busy_ms'] / wall_us:.3f}; their "
-              f"sum {dev['sum_ms']:.2f} ms; {dev['outside']} device events outside the call; "
-              f"key_averages' device sum {table_ms:.2f} ms")
-        for e in top + hist:
-            print(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x {e.key[:90]}")
-        result[name] = (dev["busy_ms"], 1e3 * dev["busy_ms"] / wall_us)
-    return result
 
 
 def diffgrad_first_move(g: torch.Tensor) -> torch.Tensor:
@@ -1297,15 +1121,13 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
     del start
     before = {f"{p}.{n}": w.detach().clone() for p in prefixes
               for n, w in getattr(tr["cpu"].state, p).named_parameters()}
-    metrics, secs, masks, cpu_codes, flips = {}, {}, [], [], {}
+    metrics, masks, cpu_codes, flips = {}, [], [], {}
     for name, t in tr.items():
-        t0 = time.perf_counter()
         with (recorded_kinks(masks) if name == "card" and pinned is not None
               else pinned_kinks(masks, flips) if name == "cpu" and pin_cpu
               else recorded_kinks(cpu_codes, ("vq",)) if name == "cpu"
               else contextlib.nullcontext()):
             metrics[name] = {k: v.item() for k, v in step(t).items()}
-        secs[name] = time.perf_counter() - t0
     card_codes = [m for k, m in masks if k == "vq"]
     code_rows = sum(a.numel() for a in card_codes)
     if pin_cpu:  # the CPU's own lookups, counted while it replayed the card's
@@ -1316,12 +1138,10 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
     del card_codes, cpu_codes
     if pinned is not None:
         if pin_cpu:
-            m_pin, secs["pinned"] = metrics["cpu"], secs["cpu"]
+            m_pin = metrics["cpu"]
         else:
-            t0 = time.perf_counter()
             with pinned_kinks(masks, flips):
                 m_pin = {k: v.item() for k, v in step(pinned).items()}
-            secs["pinned"] = time.perf_counter() - t0
         n_calls = len(masks)
         del masks
         pin_rel, pin_worst = worst_grad_gap(
@@ -1340,8 +1160,7 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
               + f"; gradients worst tensor rel {pin_rel:.3e} ({pin_worst}), gate "
               f"{pinned_rtol}"
               + (f"; codebook after the step worst buffer rel {max(book_rel.values()):.3e} "
-                 f"({max(book_rel, key=book_rel.get)}), gate {CODEBOOK_RTOL}" if book_rel else "")
-              + f" (CPU {secs['pinned']:.2f} s)")
+                 f"({max(book_rel, key=book_rel.get)}), gate {CODEBOOK_RTOL}" if book_rel else ""))
         for k in names:
             check(pin_loss[k] <= STEP_LOSS_RTOL,
                   f"card vs pinned CPU {k} within {STEP_LOSS_RTOL} relative ({label})")
@@ -1409,7 +1228,7 @@ def compare_card_cpu_step(tr: dict, step, names, prefixes, label: str,
           f"tensor's largest; parameters max|d| {r['worst']:.3e}, {r['off']} of {r['total']} "
           f"live entries off by > {STEP_PARAM_CLOSE}, {r['settled']} settled, {r['bad']} of them "
           f"outside fp32 rounding plus the gradient gap through DiffGrad; {r['moved']} tensors "
-          f"moved (card {secs['card']:.2f} s, CPU {secs['cpu']:.2f} s)")
+          "moved")
     if exact_grads is not None:
         print(f"card vs cpu:   against the float64 step, the worst tensor's gap: card "
               f"{r['card_exact']:.3e}, CPU {r['cpu_exact']:.3e} of its largest entry")
@@ -1453,7 +1272,7 @@ def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False)
     phase 9's batch and draws, or with ``rehisto`` the recoloring step on
     R3's batch and noise. The optimizer's state is fp32, so it keeps the
     gradients as they were applied. Returns (metrics, {name: gradient on
-    the CPU}, s)."""
+    the CPU})."""
     from histogan_tpu_torch.tools.dp_step import to_device
 
     if rehisto:
@@ -1477,16 +1296,14 @@ def bf16_step_run(device: str, precision: str, size: int, rehisto: bool = False)
     else:
         batch, draws = step_batch(size, t.cfg)
     batch, draws = to_device(batch, t.device), to_device(draws, t.device)
-    t0 = time.perf_counter()
     if rehisto:
         m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, True, **REHISTO_HYPER)
     else:
         m = train_step(t.state, batch, draws, t.cfg, apply_gp=True, apply_pl=True)
     metrics = {k: v.item() for k, v in m.items()}
-    secs = time.perf_counter() - t0
     grads = {k: g.detach().float().cpu() for k, (_, g) in applied_grads(t, prefixes).items()}
     t.close()
-    return metrics, grads, secs
+    return metrics, grads
 
 
 def bf16_gaps(got, want, loss_keys) -> dict:
@@ -1495,7 +1312,7 @@ def bf16_gaps(got, want, loss_keys) -> dict:
     logits, to the larger of the two and 1, since either may sit near 0),
     each tensor's gradient as 1 - cosine (a bias before an InstanceNorm,
     whose exact gradient is 0, left out)."""
-    (m, g, _), (mw, gw, _) = got, want
+    (m, g), (mw, gw) = got, want
     logit_scale = max(abs(mw["d_loss"]), abs(mw["g_loss"]), 1.0)
     gaps = {k: abs(m[k] - mw[k]) / (logit_scale if k in ("d_loss", "g_loss") else abs(mw[k]))
             for k in loss_keys}
@@ -1514,7 +1331,7 @@ def compare_bf16_step(tag: str, got, want, against: str, size: int, loss_rtol: d
     ``grad_cos`` (``bf16_gaps``). With ``floor`` (``bf16_gaps`` of another
     pair of runs) each gate widens to NOISE_FACTOR times that gap where it
     is larger."""
-    (m, g, s), (mw, gw, sw) = got, want
+    (m, g), (mw, gw) = got, want
     gaps = bf16_gaps(got, want, loss_rtol)
     tensors = [k for k in gaps if k not in loss_rtol]
 
@@ -1531,8 +1348,7 @@ def compare_bf16_step(tag: str, got, want, against: str, size: int, loss_rtol: d
                      for k in loss_rtol)
           + f"; gradient cosine, all tensors {flat:.6f}, median tensor "
           + f"{1.0 - float(np.median([gaps[k] for k in tensors])):.6f}, nearest their gates "
-          + ", ".join(f"{k} {1.0 - gaps[k]:.6f} (gate {1.0 - gate(k):.6f})" for k in nearest)
-          + f"; {s:.2f} s against {sw:.2f} s")
+          + ", ".join(f"{k} {1.0 - gaps[k]:.6f} (gate {1.0 - gate(k):.6f})" for k in nearest))
     for k in loss_rtol:
         check(math.isfinite(m[k]) and gaps[k] <= gate(k),
               f"{tag} against {against}: {k} {m[k]:.6f} vs {mw[k]:.6f}")
@@ -1588,10 +1404,7 @@ def recolor_inputs(work: Path):
 def phase_recolor(histogram_cuda, dev, smi) -> dict:
     """R1: recoloring through rehistogan-torch's entry points; returns the
     K1 and K2 launches of the three --generate runs."""
-    import contextlib
-    import io
-
-    from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    from histogan_tpu_torch.cli.rehistogan import train_from_folder
     from histogan_tpu_torch.data.dataset import load_rgb
     from histogan_tpu_torch.ops.histogram import RGBuvHistBlock, resize_if_needed
     from histogan_tpu_torch.train.rehisto_steps import RecolorModels, recolor_forward
@@ -1599,14 +1412,13 @@ def phase_recolor(histogram_cuda, dev, smi) -> dict:
 
     work = WORK / "recolor"
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
-    t0 = time.perf_counter()
     src = RecoloringTrainer("recolor", work / "cpu_r", work / "cpu_m", device="cpu", **cfg)
     src.init_GAN()
     pt = work / "weights.pt"
     n_tensors = src.export_pt(pt)
     n_params = sum(p.numel() for m in src.models().values() for p in m.parameters())
     print(f"recolor: weights seed 0, {n_params} parameters (ED/H/G/D), {n_tensors} tensors, "
-          f".pt {pt.stat().st_size} bytes in {time.perf_counter() - t0:.2f} s")
+          f".pt {pt.stat().st_size} bytes")
 
     inp, tgt = work / "input.jpg", work / "target.jpg"
     write_photo(inp, 11)
@@ -1627,61 +1439,28 @@ def phase_recolor(histogram_cuda, dev, smi) -> dict:
                      ("sampling", dict(sampling=True, target_number=2,
                                        histogram_pool=str(work / "pool.npy")))):
         reset_counts(histogram_cuda)
-        t0 = time.perf_counter()
         train_from_folder(**cli, **kw)
-        torch.cuda.synchronize()
         launches[what] = histogram_cuda.launches
         counts["histogram_fwd"] += histogram_cuda.launches
         counts["histogram_bwd"] += histogram_cuda.bwd_launches
-        print(f"recolor: --generate toward a target {what}: {time.perf_counter() - t0:.2f} s, "
-              f"K1 launches {launches[what]}")
+        print(f"recolor: --generate toward a target {what}: K1 launches {launches[what]}")
     files = sorted(p.name for p in out.glob("*-generated.jpg"))
     check(len(files) == 4, f"4 recolored images written (image, npy, 2 sampled): {files}")
     check(launches["image"] >= 1, f"K1 launched on the recolor path ({launches})")
 
-    # ms per recolored image at batch 1, and evaluate's rate at 16
+    # evaluate at 16 images and 16 targets
     model = RecoloringTrainer("recolor", work / "results", work / "models", device=CARD, **cfg)
     model.init_GAN()
     model.load_pt(pt)
     hist_block = RGBuvHistBlock(insz=150, h=64, resizing="sampling")
-
-    def one():
-        with contextlib.redirect_stdout(io.StringIO()):
-            process_image(model, "recolor", str(inp), str(tgt), image_size=256,
-                          results_dir=str(work / "results"), rng=np.random.default_rng(0))
-
     img256, h1 = recolor_inputs(work)
-
-    def bare():
-        model.recolor(img256, h1)
-
-    rates = {}
-    for name, fn in (("process_image", one), ("recolor", bare)):
-        fn()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(10):
-            fn()
-        torch.cuda.synchronize()
-        rates[name] = 1e3 * (time.perf_counter() - t0) / 10
     imgs16 = np.random.default_rng(14).random((16, 256, 256, 3), dtype=np.float32)
     hists16 = plain_hists(np.random.default_rng(15).random((16, 128, 128, 3), dtype=np.float32))
-    model.evaluate("eval16", image_batch=imgs16, hist_batch=hists16)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    for _ in range(3):
-        got16 = model.evaluate("eval16", image_batch=imgs16, hist_batch=hists16)
-    torch.cuda.synchronize()
-    eval_rate = 3 * 16 / (time.perf_counter() - t0)
-    peak = torch.cuda.max_memory_allocated()
+    got16 = model.evaluate("eval16", image_batch=imgs16, hist_batch=hists16)
     check(got16.shape == (16, 256, 256, 3) and bool(np.isfinite(got16).all())
           and float(got16.std()) > 0.0, "evaluate at 16: finite, not constant")
-    print(f"recolor: {rates['process_image']:.2f} ms per recolored image at batch 1 "
-          f"(process_image: decode, resize, target histogram, recolor, JPEG; host clock, "
-          f"synchronised, mean of 10 after a warm-up), the recolor forward alone "
-          f"{rates['recolor']:.2f} ms; RecoloringTrainer.evaluate at 16 images and 16 targets "
-          f"{eval_rate:.2f} imgs/s (peak {peak} bytes) on {smi}")
+    print(f"recolor: RecoloringTrainer.evaluate at 16 images and 16 targets: finite, not "
+          f"constant on {smi}")
 
     # the target histogram through K1 against the plain version, and the
     # card's recolor against the CPU's
@@ -1725,35 +1504,27 @@ def phase_recolor(histogram_cuda, dev, smi) -> dict:
     return counts
 
 
-def rehisto_steps_run(t, tag: str, n: int, histogram_cuda=None):
-    """Steps 0..n-1 of ``t``; returns (ms per step, per-step K1 and K2
-    launches)."""
-    step_ms, per_step = [], []
+def rehisto_steps_run(t, tag: str, n: int, histogram_cuda):
+    """Steps 0..n-1 of ``t``, each with finite losses; returns the per-step
+    K1 and K2 launches."""
+    per_step = []
     for step in range(n):
-        k1, k2 = (histogram_cuda.launches, histogram_cuda.bwd_launches) if histogram_cuda \
-            else (0, 0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        k1, k2 = histogram_cuda.launches, histogram_cuda.bwd_launches
         m = t.train(**REHISTO_HYPER)
-        torch.cuda.synchronize()
-        step_ms.append(1e3 * (time.perf_counter() - t0))
-        if histogram_cuda:
-            per_step.append((histogram_cuda.launches - k1, histogram_cuda.bwd_launches - k2))
+        per_step.append((histogram_cuda.launches - k1, histogram_cuda.bwd_launches - k2))
         flags = [name for name, on in (("GP", step % 4 == 0),
                                        ("save+evaluate", step == 0)) if on]
-        print(f"{tag}: step {step} {step_ms[-1]:.2f} ms [{', '.join(flags) or 'plain'}] "
+        print(f"{tag}: step {step} [{', '.join(flags) or 'plain'}] "
               + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
         check(all(math.isfinite(v) for v in m.values()), f"finite losses at step {step}: {m}")
-    return step_ms, per_step
+    return per_step
 
 
-def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
-                        policy: Optional[dict] = None, fp32_rate: Optional[float] = None):
-    """R2: recoloring training at batch 2 x accumulation 8, then the rate at
-    batch 16 x accumulation 1; or R2b, with ``policy`` (REHISTO_BF16), the
-    same 10 + 1 steps under it, the dtypes checked across the save and load.
-    Returns ({kernel: launches in the 10 steps}, imgs/s)."""
-    from histogan_tpu_torch.train import rehisto_steps
+def phase_rehisto_train(histogram_cuda, smi, policy: Optional[dict] = None):
+    """R2: recoloring training at batch 2 x accumulation 8; or R2b, with
+    ``policy`` (REHISTO_BF16), the same 10 + 1 steps under it, the dtypes
+    checked across the save and load. Returns {kernel: launches in the 10
+    steps}."""
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
     policy = policy or {}
@@ -1763,22 +1534,17 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
     write_images(work / "data")
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
                save_every=1000, **policy)
-    imgs_per_step = cfg["batch_size"] * cfg["gradient_accumulate_every"]
     t = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
     t.init_GAN()
     before = {k: v.detach().clone() for k, v in t.reference_state_dict().items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_counts(histogram_cuda)
-    t0 = time.perf_counter()
     t.set_data_src(str(work / "data"), sampling=True)
-    pool_s, pool_launches = time.perf_counter() - t0, histogram_cuda.launches
+    pool_launches = histogram_cuda.launches
     print(f"{tag}: batch source {type(t.loader).__name__}")
     reset_counts(histogram_cuda)
-    step_ms, per_step = rehisto_steps_run(t, tag, 10, histogram_cuda)
+    per_step = rehisto_steps_run(t, tag, 10, histogram_cuda)
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
-    peak = torch.cuda.max_memory_allocated()
     accum = cfg["gradient_accumulate_every"]
     # per micro-batch: K1 on G's output and on the hist-of-hist, K2 on G's output
     check(all(p == (2 * accum, accum) for p in per_step),
@@ -1789,26 +1555,9 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
         check(any(not torch.equal(after[k], before[k]) for k in keys), f"{prefix} changed")
     del before
     check_dtypes(t, policy, REHISTO_PARTS, ())
-    rate = 3 * imgs_per_step / (sum(step_ms[5:8]) / 1e3)
-    versus = "" if fp32_rate is None else f" against {fp32_rate:.2f} imgs/s fp32 in R2"
-    print(f"{tag}: pool of 64 images in {pool_s:.2f} s (K1 launches {pool_launches}); steps "
-          f"5-7 (plain) {step_ms[5]:.2f}/{step_ms[6]:.2f}/{step_ms[7]:.2f} ms = {rate:.2f} "
-          f"imgs/s (batch 2 x accumulation {accum}, {label}){versus}; GP steps 4 and 8 "
-          f"{step_ms[4]:.2f}/{step_ms[8]:.2f} ms; peak {peak} bytes; launches per step "
-          f"K1 {per_step[0][0]}, K2 {per_step[0][1]}; in the 10 steps {counts} on {smi}")
-
-    if profile is not None:
-        from histogan_tpu_torch.data.device_source import take_batch
-
-        batch = take_batch(t.loader, None, t.device)
-
-        def step(gp):
-            return lambda: rehisto_steps.train_step(
-                t.state, batch, rehisto_steps.draw_step(t.gen, t.cfg, t.device), t.cfg, gp,
-                **REHISTO_HYPER)
-
-        profile_fns({"plain": step(False), "gp": step(True)}, profile,
-                    "rehisto_" if label == "fp32" else f"rehisto_{label}_")
+    print(f"{tag}: 10 steps at batch 2 x accumulation {accum}, {label}; K1 launches "
+          f"{pool_launches} in the pool build; launches per step K1 {per_step[0][0]}, K2 "
+          f"{per_step[0][1]}; in the 10 steps {counts} on {smi}")
 
     t.save(1)
     opt_steps = t.state.step
@@ -1831,24 +1580,7 @@ def phase_rehisto_train(histogram_cuda, smi, profile: Optional[Path],
           + " ".join(f"{k}={v:.4f}" for k, v in sorted(m.items())))
     del r
     torch.cuda.empty_cache()
-    if policy:
-        return counts, rate
-
-    # bench.py's reHistoGAN configuration: batch 16 x accumulation 1
-    cfg16 = dict(cfg, batch_size=16, gradient_accumulate_every=1)
-    t = RecoloringTrainer("rt16", work / "results", work / "models", device=CARD, **cfg16)
-    t.init_GAN()
-    t.set_data_src(str(work / "data"), sampling=True)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms16, _ = rehisto_steps_run(t, "rehisto train b16", 8)
-    t.close()
-    rate16 = 3 * 16 / (sum(step_ms16[5:8]) / 1e3)
-    print(f"rehisto train b16: steps 5-7 (plain) {step_ms16[5]:.2f}/{step_ms16[6]:.2f}/"
-          f"{step_ms16[7]:.2f} ms = {rate16:.2f} imgs/s (batch 16 x accumulation 1, fp32); "
-          f"GP step 4 {step_ms16[4]:.2f} ms; peak {torch.cuda.max_memory_allocated()} bytes")
-    del t
-    torch.cuda.empty_cache()
-    return counts, rate
+    return counts
 
 
 def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
@@ -1873,9 +1605,8 @@ def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
     t = RecoloringTrainer("rt", work / "results", work / "models", device=CARD, **cfg)
     t.init_GAN()
     t.set_data_src(str(data), sampling=True)
-    torch.cuda.reset_peak_memory_stats()
     reset_counts(histogram_cuda)
-    step_ms, per_step = rehisto_steps_run(t, tag, 3, histogram_cuda)
+    per_step = rehisto_steps_run(t, tag, 3, histogram_cuda)
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
     accum = cfg["gradient_accumulate_every"]
@@ -1892,11 +1623,8 @@ def phase_rehisto_d_options(histogram_cuda, smi) -> dict:
     check(all(torch.equal(v, moved[k]) for k, v in t.state.D.named_buffers()),
           "the G phase leaves the codebook as it is")
     t.close()
-    rate = 2 * accum / (step_ms[2] / 1e3)
-    print(f"{tag}: {json.dumps(options)}: steps 0-2 {'/'.join(f'{x:.2f}' for x in step_ms)} ms "
-          f"(0: GP, save and evaluate), step 2 (plain) = {rate:.2f} imgs/s (batch 2 x "
-          f"accumulation {accum}, fp32); the D phase moved the codebook, the G phase did not; "
-          f"peak {torch.cuda.max_memory_allocated()} bytes; launches {counts} on {smi}")
+    print(f"{tag}: {json.dumps(options)}: 3 steps at batch 2 x accumulation {accum}, fp32; "
+          f"the D phase moved the codebook, the G phase did not; launches {counts} on {smi}")
     del t
     torch.cuda.empty_cache()
     return counts
@@ -1970,10 +1698,10 @@ def phase_rehisto_card_vs_cpu() -> None:
 # ------------------------------------- reHistoGAN: bf16, full resolution, pools
 def phase_recolor_bf16(histogram_cuda, smi) -> dict:
     """R1b: the recolor under --precision bf16 through rehistogan-torch,
-    its ms per photo, and the bf16 recolor held to the fp32 one on the card
-    on the same weights, image, histogram and noise. Returns the K1 and K2
-    launches of the --generate run."""
-    from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
+    and the bf16 recolor held to the fp32 one on the card on the same
+    weights, image, histogram and noise. Returns the K1 and K2 launches of
+    the --generate run."""
+    from histogan_tpu_torch.cli.rehistogan import train_from_folder
     from histogan_tpu_torch.train.rehisto_steps import RecolorModels, recolor_forward
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
     from histogan_tpu_torch.train.steps import cast_models
@@ -1981,20 +1709,18 @@ def phase_recolor_bf16(histogram_cuda, smi) -> dict:
     src, work = WORK / "recolor", WORK / "recolor_bf16"
     pt, inp, tgt = src / "weights.pt", src / "input.jpg", src / "target.jpg"
     reset_counts(histogram_cuda)
-    t0 = time.perf_counter()
     train_from_folder(results_dir=str(work / "results"), models_dir=str(work / "models"),
                       name="recolor", image_size=256, network_capacity=16, skip_conn_to_GAN=True,
                       variance_loss=True, hist_resizing="sampling", load_histogan_weights=False,
                       load_pt=str(pt), generate=True, input_image=str(inp), target_hist=str(tgt),
                       seed=0, device=CARD, precision="bf16")
-    torch.cuda.synchronize()
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
     files = list((work / "results" / "recolor").glob("output-target-*-generated.jpg"))
     check(len(files) == 1, f"one bf16 recolored image written: {files}")
     check(counts["histogram_fwd"] >= 1, f"K1 launched on the bf16 recolor path ({counts})")
     print(f"recolor bf16: --generate --precision bf16 toward a target image: "
-          f"{time.perf_counter() - t0:.2f} s, K1 launches {counts['histogram_fwd']}")
+          f"K1 launches {counts['histogram_fwd']}")
 
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
     models = {}
@@ -2004,19 +1730,6 @@ def phase_recolor_bf16(histogram_cuda, smi) -> dict:
         t.init_GAN()
         t.load_pt(pt)
         models[precision] = t
-
-    def one():
-        with contextlib.redirect_stdout(io.StringIO()):
-            process_image(models["bf16"], "recolor", str(inp), str(tgt), image_size=256,
-                          results_dir=str(work / "results"), rng=np.random.default_rng(0))
-
-    one()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(10):
-        one()
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0) / 10
 
     img256, h1 = recolor_inputs(src)
     imgs = torch.from_numpy(np.concatenate(
@@ -2043,9 +1756,9 @@ def phase_recolor_bf16(histogram_cuda, smi) -> dict:
     check(bool(torch.isfinite(a).all()), "bf16 recolor finite")
     check(gap <= RECOLOR_BF16_TOL_REL,
           f"bf16 vs fp32 recolor {gap:.3e} of the largest entry <= {RECOLOR_BF16_TOL_REL}")
-    print(f"recolor bf16: {ms:.2f} ms per recolored image at batch 1 (process_image, as R1); "
-          f"2 recolors at 256 px, bf16 vs fp32 on the card: max|d| {gap:.3e} of the largest "
-          f"pre-clip entry {scale:.3e} (tolerance {RECOLOR_BF16_TOL_REL}); after the clip max "
+    print(f"recolor bf16: 2 recolors at 256 px, bf16 vs fp32 on the card: max|d| {gap:.3e} of "
+          f"the largest pre-clip entry {scale:.3e} (tolerance {RECOLOR_BF16_TOL_REL}); after the "
+          f"clip max "
           f"{clipped.max().item():.3e}, mean {clipped.mean().item():.3e} on {smi}")
     del models
     torch.cuda.empty_cache()
@@ -2067,22 +1780,19 @@ def grid_size(size_hw, mode: str, levels: int):
     return w + GRID_BORDER, h + GRID_BORDER
 
 
-def phase_fullres(smi) -> dict:
+def phase_fullres(smi) -> None:
     """R4: full-resolution output on a 384x512 and a 200x180 photo. First
     rehistogan-torch's train_from_folder(generate=True) with the documented
     --upsampling_output True --upsampling_method BGU on the card. Then each
     mode (upscaling by the pyramid and by BGU on the scipy and on the native
     backend, downscaling, and post-recoloring) through the CLI's
     process_image on a card trainer and a CPU trainer whose recolors take
-    one noise: the card's file has the size JAX's evaluate gives it, the
-    final image from the card's recolor is held to the CPU's, and the card's
-    seconds stand beside process_image's without post-processing. Returns
-    {mode: seconds of process_image on the card}."""
+    one noise: the card's file has the size JAX's evaluate gives it, and the
+    final image from the card's recolor is held to the CPU's."""
     from PIL import Image
 
-    from histogan_tpu_torch import native
     from histogan_tpu_torch.cli.rehistogan import process_image, train_from_folder
-    from histogan_tpu_torch.post import bgu, bgu_native
+    from histogan_tpu_torch.post import bgu_native
     from histogan_tpu_torch.train import rehisto_trainer
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
@@ -2106,7 +1816,6 @@ def phase_fullres(smi) -> dict:
 
     # the entry point a user calls, as README documents it
     os.environ["HISTOGAN_BGU"] = "scipy"
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()):
         train_from_folder(results_dir=str(work / "cli"), models_dir=str(work / "models"),
                           name="fullres", image_size=REHISTO["image_size"],
@@ -2119,8 +1828,7 @@ def phase_fullres(smi) -> dict:
     got, want = written(work / "cli"), grid_size((384, 512), "full", R4_PYRAMID_LEVELS)
     check(got == want, f"R4 train_from_folder BGU: file {got}, JAX's evaluate writes {want}")
     print(f"R4 rehistogan-torch --generate --upsampling_output True --upsampling_method BGU: "
-          f"384x512 photo, file {got[0]}x{got[1]} (W x H, JAX's size), "
-          f"{time.perf_counter() - t0:.2f} s on {smi}")
+          f"384x512 photo, file {got[0]}x{got[1]} (W x H, JAX's size) on {smi}")
 
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0)
     trainers = {}
@@ -2138,29 +1846,19 @@ def phase_fullres(smi) -> dict:
     real_save = rehisto_trainer.save_image_grid
     rehisto_trainer.save_image_grid = lambda x, path, nrow: (images.append(np.array(x)),
                                                              real_save(x, path, nrow))
-    # each BGU fit: its backend, seconds and (native) the solver's report
-    fits = []
-    real_fit, real_native = bgu.bgu_fit, bgu_native.bgu_fit_native
-
-    def scipy_fit(*args, **kwargs):
-        t0 = time.perf_counter()
-        gamma = real_fit(*args, **kwargs)
-        fits.append(("scipy", time.perf_counter() - t0, None))
-        return gamma
+    # the native solver's report of each native fit
+    reports = []
+    real_native = bgu_native.bgu_fit_native
 
     def native_fit(*args, **kwargs):
-        t0 = time.perf_counter()
         gamma, report = bgu_native.bgu_fit_native_report(*args, **kwargs)
-        fits.append(("native", time.perf_counter() - t0, report))
+        reports.append(report)
         return gamma
 
-    t0 = time.perf_counter()
-    native.load_library()  # g++ at first use: built before the timed fits
-    print(f"R4 native BGU solver built and loaded in {time.perf_counter() - t0:.2f} s")
-    bgu.bgu_fit, bgu_native.bgu_fit_native = scipy_fit, native_fit
-    secs, card_finals = {}, {}
+    bgu_native.bgu_fit_native = native_fit
+    card_finals = {}
     try:
-        for i, (mode, photo, flags) in enumerate([modes[0], *modes]):  # the first warms up
+        for i, (mode, photo, flags) in enumerate(modes):
             path, size_hw = photos[photo]
             if mode.startswith("BGU"):
                 os.environ["HISTOGAN_BGU"] = mode.split()[1]
@@ -2168,16 +1866,11 @@ def phase_fullres(smi) -> dict:
             for name, t in trainers.items():
                 t.results_dir = work / name / f"{i}_{mode.replace(' ', '_')}"
                 images.clear()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     process_image(t, "fullres", str(path), str(tgt), image_size=size,
                                   pyramid_levels=R4_PYRAMID_LEVELS,
                                   results_dir=str(t.results_dir),
                                   rng=np.random.default_rng(0), **flags)
-                torch.cuda.synchronize()
-                if name == "card":
-                    secs[mode] = time.perf_counter() - t0
                 recolored[name], finals[name] = images[0][0], images[-1][0]
             card_finals[mode] = finals["card"]
             kind = ("pyramid" if flags.get("upsampling_method") == "pyramid" else
@@ -2197,24 +1890,20 @@ def phase_fullres(smi) -> dict:
                   f"R4 {mode}: card vs CPU final max|d| {gap:.3e} <= {POST_FACTOR} x the "
                   f"recolor's {rgap:.3e}")
             print(f"R4 {mode}: {photo} photo, file {got[0]}x{got[1]} (W x H, JAX's size); "
-                  f"process_image on the card {secs[mode]:.3f} s ({secs[mode] - secs['none']:.3f} s "
-                  f"above 'none'); card vs CPU final image max|d| {gap:.3e}, the recolor's "
-                  f"{rgap:.3e} (ratio {gap / rgap if rgap else 0.0:.2f}, gate {POST_FACTOR}) on {smi}")
+                  f"card vs CPU final image max|d| {gap:.3e}, the recolor's {rgap:.3e} (ratio "
+                  f"{gap / rgap if rgap else 0.0:.2f}, gate {POST_FACTOR}) on {smi}")
         gap = float(np.abs(card_finals["BGU native"] - card_finals["BGU scipy"]).max())
         check(gap <= BGU_NATIVE_TOL, f"R4 BGU native vs scipy: max|d| {gap:.3e} <= "
                                      f"{BGU_NATIVE_TOL}")
-        for (kind, s_fit, report), dev_name in zip(fits, ["card", "cpu"] * len(fits)):
-            solve = ("" if report is None else
-                     f", iterations per channel {list(report.iters)}, final relative residual "
-                     + "/".join(f"{r:.3e}" for r in report.residual))
-            print(f"R4 BGU fit ({kind}, the {dev_name} trainer's recolor, 256x256 to grid 16x16x8)"
-                  f": {s_fit:.3f} s{solve} on the card's host ({smi})")
+        check(len(reports) == 2, f"R4 BGU native: one native fit per trainer ({len(reports)})")
+        for report, dev_name in zip(reports, ["card", "cpu"]):
+            print(f"R4 BGU native fit (the {dev_name} trainer's recolor, 256x256 to grid "
+                  f"16x16x8): iterations per channel {list(report.iters)}, final relative "
+                  f"residual " + "/".join(f"{r:.3e}" for r in report.residual))
         print(f"R4 BGU native vs scipy: the card's final images max|d| {gap:.3e} (gate "
-              f"{BGU_NATIVE_TOL}); fit seconds native "
-              + "/".join(f"{f[1]:.3f}" for f in fits if f[0] == "native") + " against scipy "
-              + "/".join(f"{f[1]:.3f}" for f in fits if f[0] == "scipy"))
+              f"{BGU_NATIVE_TOL})")
     finally:
-        bgu.bgu_fit, bgu_native.bgu_fit_native = real_fit, real_native
+        bgu_native.bgu_fit_native = real_native
         rehisto_trainer.save_image_grid = real_save
         if backend is None:
             os.environ.pop("HISTOGAN_BGU", None)
@@ -2222,7 +1911,6 @@ def phase_fullres(smi) -> dict:
             os.environ["HISTOGAN_BGU"] = backend
     del trainers
     torch.cuda.empty_cache()
-    return secs
 
 
 def phase_rehisto_bf16_step() -> None:
@@ -2274,16 +1962,12 @@ def phase_pool_clis(histogram_cuda, smi) -> dict:
     histogram_cuda._launch = launch
     try:
         for name, cli, args, out_flag, shape, n in runs:
-            secs = {}
             for device in ("cuda", "cpu"):
                 shapes.clear()
                 reset_counts(histogram_cuda)
                 target = work / f"{name}_{device}" / ("pool.npy" if out_flag == "--output" else "")
-                t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     path = cli.main([*args, out_flag, str(target), "--device", device])
-                torch.cuda.synchronize()
-                secs[device] = time.perf_counter() - t0
                 outs[device] = np.load(path)
                 if device == "cuda":
                     launches[name] = {"histogram_fwd": histogram_cuda.launches,
@@ -2295,8 +1979,7 @@ def phase_pool_clis(histogram_cuda, smi) -> dict:
             check(outs["cuda"].shape == outs["cpu"].shape and l1 < HIST_L1,
                   f"H1 {name}: card vs CPU L1 {l1:.3e} < {HIST_L1}")
             print(f"H1 {name}: {outs['cuda'].shape} card vs CPU L1 {l1:.3e} (gate {HIST_L1}); "
-                  f"launches {launches[name]}, K1 at {shape}; {secs['cuda']:.2f} s on the card, "
-                  f"{secs['cpu']:.2f} s with --device cpu on {smi}")
+                  f"launches {launches[name]}, K1 at {shape} on {smi}")
     finally:
         histogram_cuda._launch = real_launch
     return launches
@@ -2310,13 +1993,6 @@ def phase_pool_clis(histogram_cuda, smi) -> dict:
 # below the first.
 PROJECTION_STEPS = 50
 PROJECTION_LR = 0.1  # the CLIs' default
-# P2: the JAX bench's protocol (bench.py:257-326): steps/s over perf_out's
-# window, which opens after the first step; 200 steps a run, one run a
-# mode (one, not two, for the script's time limit).
-PROJECTION_BENCH_STEPS = 200
-PROJECTION_BENCH_RUNS = 1
-PROJECTION_BENCH = (("z_space", "gaussian", 0.0), ("style_space", "latent", 0.0),
-                    ("z_space_vgg", "gaussian", 0.001))
 # P3's photo, H x W: the post-processed files take its size (MKL) or pad
 # it to a multiple of 2**pyramid_levels (the pyramid, levels 6: 256 x 320)
 PROJECTION_PHOTO = (200, 300)
@@ -2356,24 +2032,21 @@ def npz_names(v: dict) -> dict:
 
 
 @contextlib.contextmanager
-def projection_probe(out: dict, first_step=contextlib.nullcontext, profile=None):
+def projection_probe(out: dict, first_step=contextlib.nullcontext):
     """Within, a project_* call records its start render (``render``, the
     first _forward), the aux of each logged step (``aux``) and step 0's
     gradients by npz key (``grads``); step 0's forward runs inside
-    ``first_step()``. With ``profile`` ((out dir, name)), one step of the
-    loop is timed and profiled (``profile_fns``) before it runs, and its
-    (device busy ms, busy share) goes to ``profiled``."""
+    ``first_step()``."""
     from histogan_tpu_torch import projection
 
     real_run, real_forward = projection._run_optimization, projection._forward
-    stdout = sys.stdout  # the caller's, for the profile's lines
 
     def forward(*args, **kwargs):
         rgb = real_forward(*args, **kwargs)
         out.setdefault("render", rgb.detach().cpu())
         return rgb
 
-    def run(loss_fn, optimizer, variables, n, log_every, save_every, on_log, on_save, **kw):
+    def run(loss_fn, optimizer, variables, n, log_every, save_every, on_log, on_save):
         def loss(v):
             if "grads" in out:
                 return loss_fn(v)
@@ -2386,15 +2059,7 @@ def projection_probe(out: dict, first_step=contextlib.nullcontext, profile=None)
             out.setdefault("aux", []).append([float(a) for a in aux])
             on_log(t, aux)
 
-        if profile is not None:
-            def step():
-                optimizer.zero_grad(set_to_none=True)
-                loss_fn(variables)[0].backward()
-                optimizer.step()
-            with contextlib.redirect_stdout(stdout):
-                out["profiled"] = profile_fns({profile[1]: step}, profile[0],
-                                              "projection_")[profile[1]]
-        return real_run(loss, optimizer, variables, n, log_every, save_every, log, on_save, **kw)
+        return real_run(loss, optimizer, variables, n, log_every, save_every, log, on_save)
 
     projection._run_optimization, projection._forward = run, forward
     try:
@@ -2415,17 +2080,17 @@ def projection_trainer(device: str, work: Path):
     return t
 
 
-def project(t, mode: str, photo: Path, results: Path, probe: dict, steps: int,
-            vgg_loss_weight: float = 0.001, **kw):
-    """project_* (``mode``) of ``photo`` by ``t``, ``steps`` steps logged
-    each, inside ``projection_probe(probe, **kw)``; its lines go nowhere."""
+def project(t, mode: str, photo: Path, results: Path, probe: dict, steps: int, first_step):
+    """project_* (``mode``) of ``photo`` by ``t``, VGG on, ``steps`` steps
+    logged each, inside ``projection_probe(probe, first_step)``; its lines
+    go nowhere."""
     from histogan_tpu_torch import projection
 
     fn = projection.project_gaussian if mode == "gaussian" else projection.project_to_latent
-    with projection_probe(probe, **kw), contextlib.redirect_stdout(io.StringIO()):
+    with projection_probe(probe, first_step), contextlib.redirect_stdout(io.StringIO()):
         return fn(t, str(photo), results_dir=str(results), num_train_steps=steps,
                   learning_rate=PROJECTION_LR, save_every=steps, log_every=1,
-                  vgg_loss_weight=vgg_loss_weight, seed=0)
+                  vgg_loss_weight=0.001, seed=0)
 
 
 def phase_projection_card_vs_cpu(smi) -> None:
@@ -2445,17 +2110,14 @@ def phase_projection_card_vs_cpu(smi) -> None:
               "P1: the same weights on both")
         del start
         for mode in ("gaussian", "latent"):
-            masks, flips, runs, secs = [], {}, {}, {}
-            for name, device, steps, first_step in (
-                    ("card", CARD, PROJECTION_STEPS, lambda: recorded_kinks(masks)),
-                    ("cpu", "cpu", 1, contextlib.nullcontext),
-                    ("pinned", "cpu", 1, lambda: pinned_kinks(masks, flips))):
+            masks, flips, runs = [], {}, {}
+            for name, steps, first_step in (
+                    ("card", PROJECTION_STEPS, lambda: recorded_kinks(masks)),
+                    ("cpu", 1, contextlib.nullcontext),
+                    ("pinned", 1, lambda: pinned_kinks(masks, flips))):
                 t = trainers["card" if name == "card" else "cpu"]
                 runs[name] = {}
-                t0 = time.perf_counter()
-                project(t, mode, photo, work / f"{mode}_{name}", runs[name], steps,
-                        first_step=first_step)
-                secs[name] = time.perf_counter() - t0
+                project(t, mode, photo, work / f"{mode}_{name}", runs[name], steps, first_step)
             n_calls = len(masks)
             del masks
             card, cpu, pin = runs["card"], runs["cpu"], runs["pinned"]
@@ -2475,8 +2137,7 @@ def phase_projection_card_vs_cpu(smi) -> None:
                   + f"): losses rel {pin_loss[0]:.2e}/{pin_loss[1]:.2e}, gradients worst "
                   f"{pin_rel:.3e} ({pin_worst}; gate {PROJECTION_PINNED_GRAD_RTOL}); "
                   f"{PROJECTION_STEPS} card "
-                  f"steps: rec {rec[0]:.6f} -> {rec[-1]:.6f} (card {secs['card']:.2f} s, CPU "
-                  f"{secs['cpu']:.2f} s, pinned {secs['pinned']:.2f} s) on {smi}")
+                  f"steps: rec {rec[0]:.6f} -> {rec[-1]:.6f} on {smi}")
             check(render <= SLICE_TOL, f"P1 {mode}: start render within {SLICE_TOL}")
             check(all(r <= STEP_LOSS_RTOL for r in loss_rel + pin_loss),
                   f"P1 {mode}: step-0 losses within {STEP_LOSS_RTOL}")
@@ -2489,52 +2150,6 @@ def phase_projection_card_vs_cpu(smi) -> None:
             t.close()
     del trainers
     torch.cuda.empty_cache()
-
-
-def phase_projection_timed(smi, profile: Optional[Path]) -> dict:
-    """P2: projection steps/s on the card under the JAX bench's names, two
-    runs each; with ``profile``, one profiled step of each."""
-    from histogan_tpu_torch import projection
-
-    work = WORK / "projection_p2"
-    rng = np.random.default_rng(0)
-    photo = work / "in.jpg"
-    photo.parent.mkdir(parents=True, exist_ok=True)
-    from PIL import Image
-
-    Image.fromarray((rng.random((256, 256, 3)) * 255).astype(np.uint8)).save(photo)
-    rates = {}
-    with vgg_weights(work):
-        t = projection_trainer(CARD, work)
-        for label, mode, vgg_w in PROJECTION_BENCH:
-            fn = projection.project_gaussian if mode == "gaussian" else projection.project_to_latent
-            runs = []
-            for i in range(PROJECTION_BENCH_RUNS):
-                perf = {}
-                with contextlib.redirect_stdout(io.StringIO()):
-                    fn(t, str(photo), results_dir=str(work / f"res_{label}"),
-                       num_train_steps=PROJECTION_BENCH_STEPS, save_every=PROJECTION_BENCH_STEPS,
-                       log_every=0, chunk_steps=PROJECTION_BENCH_STEPS, vgg_loss_weight=vgg_w,
-                       seed=0, perf_out=perf)
-                check(perf.get("opt_window_steps") == PROJECTION_BENCH_STEPS - 1
-                      and perf.get("opt_steps_per_sec", 0) > 0, f"P2 {label}: a timed window {perf}")
-                runs.append(perf["opt_steps_per_sec"])
-            name = f"projection_{label}_steps_per_sec_256px"
-            rates[name] = runs
-            prof = ""
-            if profile is not None:
-                probe = {}
-                project(t, mode, photo, work / f"prof_{label}", probe, 1, vgg_loss_weight=vgg_w,
-                        profile=(profile, label))
-                busy_ms, share = probe["profiled"]
-                prof = f"; one profiled step: device busy {busy_ms:.2f} ms, busy share {share:.3f}"
-            print(f"P2 {name}: {' and '.join(f'{r:.2f}' for r in runs)} steps/s over "
-                  f"{PROJECTION_BENCH_STEPS - 1} steps (fp32, batch 1, "
-                  f"{'VGG on' if vgg_w else 'VGG off'}){prof} on {smi}")
-        t.close()
-    del t
-    torch.cuda.empty_cache()
-    return rates
 
 
 def jax_npz_layout(mode: str, image_size: int, capacity: int, optimize_noise: bool) -> dict:
@@ -2590,12 +2205,9 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
             out_dir = results / "proj" / "photo"
             args = [*common, "--results_dir", str(results)]
             reset_counts(histogram_cuda)
-            t0 = time.perf_counter()
             buf = io.StringIO()
             with contextlib.redirect_stdout(buf):
                 cli.main([*args, "--num_train_steps", "20", "--save_every", "10"])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
             launches[path] = histogram_cuda.launches
             logged = [l for l in buf.getvalue().splitlines() if l.startswith("Optimization step")]
             vgg = [float(l.split("vgg loss = ")[1].split(",")[0]) for l in logged]
@@ -2614,7 +2226,7 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
                       f"P3 {mode}: {f} keys and shapes as JAX's {layout}: {shapes}")
             check(len(logged) == 20 and all(v > 0 for v in vgg),
                   f"P3 {mode}: 20 logged steps with the VGG term on")
-            print(f"P3 {path}: 20 steps (VGG on) in {secs:.2f} s through main(); files "
+            print(f"P3 {path}: 20 steps (VGG on) through main(); files "
                   f"{sorted(got)}; _final.npz {layout}; K1 launches {launches[path]} on {smi}")
 
             runs = [("JPEG", target, {}), ("npy", work / "target.npy", {}),
@@ -2627,12 +2239,9 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
                 for old in out_dir.glob("generated-*.jpg"):  # names stamped to the second
                     old.unlink()
                 reset_counts(histogram_cuda)
-                t0 = time.perf_counter()
                 with contextlib.redirect_stdout(io.StringIO()):
                     cli.main([*args, "--generate", "True", "--target_hist", str(hist_src),
                               *[x for kv in extra.items() for x in kv]])
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
                 k1 = histogram_cuda.launches
                 launches["projection_recolor"] += k1
                 made = sorted(out_dir.glob("generated-*.jpg"))
@@ -2656,7 +2265,7 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
                 check(k1 == sum(Path(s).suffix == ".jpg" for s in sources),
                       f"P3 {mode} --generate toward a {what}: K1 once per image target ({k1})")
                 print(f"P3 {path} --generate toward a {what}: {[p.name for p in made]} at "
-                      f"{want_size} in {secs:.2f} s; K1 launches {k1}")
+                      f"{want_size}; K1 launches {k1}")
     check(all(v >= 1 for v in launches.values()), f"P3: K1 on every projection path {launches}")
     torch.cuda.empty_cache()
     return launches
@@ -2665,14 +2274,13 @@ def phase_projection_clis(histogram_cuda, smi) -> dict:
 # ------------------------------------------------- the data sources and FID
 def loaders_run(histogram_cuda, smi, tag: str, **opts):
     """Phase 8's trainer with ``opts`` (device_dataset, sync_every): the
-    pool and steps 0-9, the plain steps 5-7 timed as one window (imgs/s),
-    then two plain steps 10-11 under the profiler (the device's busy
-    share). Launches are counted over the pool build and steps 0-9, as
-    phase 8 counts them, the steps' own held to exactly one K1 and one K2
-    a step. Step 0's checkpoint is not written: a flagship checkpoint is
-    3.45 GB of the card machine's disk, which the whole script must stay
+    pool and steps 0-9, the metrics read back on the sync steps only and
+    finite there. Launches are counted over the pool build and steps 0-9,
+    as phase 8 counts them, the steps' own held to exactly one K1 and one
+    K2 a step. Step 0's checkpoint is not written: a flagship checkpoint
+    is 3.45 GB of the card machine's disk, which the whole script must stay
     within (phase 8 saves and loads). Returns (trainer, source, {kernel:
-    launches}, imgs/s)."""
+    launches})."""
     from histogan_tpu_torch.train.trainer import Trainer
 
     work = WORK / f"loaders_{tag.replace(' ', '_')}"
@@ -2685,14 +2293,7 @@ def loaders_run(histogram_cuda, smi, tag: str, **opts):
     t.set_data_src(str(WORK / "images"))
     pool = histogram_cuda.launches
     source = type(t.loader).__name__
-    out = [t.train() for _ in range(5)]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out += [t.train() for _ in range(3)]
-    torch.cuda.synchronize()
-    window = time.perf_counter() - t0
-    out += [t.train() for _ in range(2)]
-    torch.cuda.synchronize()
+    out = [t.train() for _ in range(10)]
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
     sync = t.sync_every
@@ -2705,15 +2306,10 @@ def loaders_run(histogram_cuda, smi, tag: str, **opts):
     check(pool >= 1 and (steps_k1, steps_k2) == (10, 10),
           f"{tag}: K1 {pool} in the pool build; K1 {steps_k1} and K2 {steps_k2} in the 10 "
           f"steps, want 10 and 10")
-    rate = 3 * cfg["batch_size"] / window
-    name = "steps 10-11"
-    _, busy = profile_fns({name: lambda: [t.train() for _ in range(2)]}, WORK / "prof",
-                          f"dd1_{tag.replace(' ', '_')}_", timed=0)[name]
-    print(f"DD1 {tag}: source {source}, sync_every {sync}; steps 5-7 (plain) {1e3 * window:.2f} "
-          f"ms = {rate:.2f} imgs/s (batch 16, fp32); steps 10-11 (plain) profiled: device busy "
-          f"share {busy:.3f}; K1 {pool} in the pool build, K1 {steps_k1} and K2 {steps_k2} in "
-          f"the 10 steps on {smi}")
-    return t, source, counts, rate
+    print(f"DD1 {tag}: source {source}, sync_every {sync}; metrics read back on steps "
+          f"{synced}; K1 {pool} in the pool build, K1 {steps_k1} and K2 {steps_k2} in the 10 "
+          f"steps on {smi}")
+    return t, source, counts
 
 
 def nan_rollback_on_the_card() -> None:
@@ -2771,41 +2367,36 @@ def phase_loaders(histogram_cuda, smi) -> dict:
     runs = {"training_streaming": dict(device_dataset=False),
             "training_streaming_sync4": dict(device_dataset=False, sync_every=4),
             "training_sync4": dict(sync_every=4)}
-    launches, rates = {}, {}
+    launches = {}
     for path, opts in runs.items():
-        t, source, launches[path], rates[path] = loaders_run(histogram_cuda, smi,
-                                                             path.replace("_", " "), **opts)
+        t, source, launches[path] = loaders_run(histogram_cuda, smi, path.replace("_", " "),
+                                                **opts)
         want = "TrainLoader" if opts.get("device_dataset") is False else "DeviceDataSource"
         check(source == want, f"DD1 {path}: source {source}, want {want}")
         t.close()
         del t
         torch.cuda.empty_cache()
-    print("DD1 plain-step imgs/s: " + ", ".join(f"{k} {v:.2f}" for k, v in rates.items()))
     nan_rollback_on_the_card()
     return launches
 
 
 def phase_loaders_rehisto(histogram_cuda, smi) -> dict:
-    """DD1r: R2b's host-bound cell (reHistoGAN bf16 at 2 x 8) on both
-    sources, each with sync_every 1 and 4. One trainer per source, steps
-    0-3 as the warm-up; then windows of a GP step (untimed; the step that
-    sync_every 4 syncs on) and the three plain steps after it (timed), in
-    the order of PATHS and back, so that the host's drift over the phase
-    falls on every side alike. Per source and sync: each window's imgs/s,
-    and K1 and K2 launches, exactly 16 and 8 a step (no profiled step, for
-    the script's time limit: its busy share is not measured here). Returns
-    {path: {kernel: launches}} (the default's path is R2b's,
-    rehisto_training_bf16)."""
+    """DD1r: reHistoGAN bf16 at 2 x 8 (R2b's configuration) on both
+    sources. One trainer per source takes step 0 (save and evaluate), then
+    steps 1-4 syncing every step and steps 5-8 syncing every 4th: the
+    metrics read back on the sync steps only, and K1 and K2 launched
+    exactly 16 and 8 a step. Returns {path: {kernel: launches}} (the
+    default's path is R2b's, rehisto_training_bf16)."""
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
 
     cfg = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, seed=0,
                save_every=1000, **REHISTO_BF16)
-    per_step, imgs = (2 * REHISTO_ACCUM, REHISTO_ACCUM), 2 * REHISTO_ACCUM
+    per_step, steps = (2 * REHISTO_ACCUM, REHISTO_ACCUM), 4
     paths = {("DeviceDataSource", 1): "rehisto_training_bf16",
              ("TrainLoader", 1): "rehisto_training_bf16_streaming",
              ("TrainLoader", 4): "rehisto_training_bf16_streaming_sync4",
              ("DeviceDataSource", 4): "rehisto_training_bf16_sync4"}
-    trainers = {}
+    counts = {}
     for source, flag in (("DeviceDataSource", "auto"), ("TrainLoader", False)):
         work = WORK / f"loaders_rehisto_{source}"
         t = RecoloringTrainer("dd", work / "results", work / "models", device=CARD,
@@ -2817,55 +2408,42 @@ def phase_loaders_rehisto(histogram_cuda, smi) -> dict:
         check(type(t.loader).__name__ == source and histogram_cuda.launches >= 1,
               f"DD1r: source {type(t.loader).__name__}, want {source}; K1 "
               f"{histogram_cuda.launches} in the pool build")
-        for _ in range(4):
-            t.train(**REHISTO_HYPER)
-        trainers[source] = t
-    rates = {key: [] for key in paths}
-    counts = {key: {"histogram_fwd": 0, "histogram_bwd": 0} for key in paths}
-    steps = dict.fromkeys(paths, 0)
-    for key in [*paths, *reversed(paths)]:
-        t = trainers[key[0]]
-        t.sync_every = key[1]
-        reset_counts(histogram_cuda)
-        out = [t.train(**REHISTO_HYPER)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out += [t.train(**REHISTO_HYPER) for _ in range(3)]
-        torch.cuda.synchronize()
-        rates[key].append(3 * imgs / (time.perf_counter() - t0))
-        counts[key]["histogram_fwd"] += histogram_cuda.launches
-        counts[key]["histogram_bwd"] += histogram_cuda.bwd_launches
-        steps[key] += 4
-        synced = [i for i, m in enumerate(out) if m is not None]
-        check(synced == ([0, 1, 2, 3] if key[1] == 1 else [0]),
-              f"DD1r {paths[key]}: metrics read back on the window's steps {synced}")
-        check(all(math.isfinite(v) for i in synced for v in out[i].values()),
-              f"DD1r {paths[key]}: finite losses on the synced steps")
-    for key, path in paths.items():
-        want = (steps[key] * per_step[0], steps[key] * per_step[1])
-        got = (counts[key]["histogram_fwd"], counts[key]["histogram_bwd"])
-        check(got == want, f"DD1r {path}: K1 and K2 {got} in {steps[key]} steps, want {want}")
-        print(f"DD1r {path}: source {key[0]}, sync_every {key[1]}; plain steps, two windows of "
-              f"3: {' / '.join(f'{r:.2f}' for r in rates[key])} imgs/s (batch 2 x accumulation "
-              f"{REHISTO_ACCUM}, bf16); "
-              f"K1 {got[0]} and K2 {got[1]} in {steps[key]} steps on {smi}")
-    for t in trainers.values():
+        t.train(**REHISTO_HYPER)  # step 0: save (skipped) and evaluate
+        for sync in (1, 4):
+            key, first = (source, sync), t.steps
+            t.sync_every = sync
+            reset_counts(histogram_cuda)
+            out = [t.train(**REHISTO_HYPER) for _ in range(steps)]
+            counts[key] = {"histogram_fwd": histogram_cuda.launches,
+                           "histogram_bwd": histogram_cuda.bwd_launches}
+            synced = [first + i for i, m in enumerate(out) if m is not None]
+            want_synced = [s for s in range(first, first + steps) if s % sync == 0]
+            check(synced == want_synced,
+                  f"DD1r {paths[key]}: metrics read back on steps {synced}, want {want_synced}")
+            check(all(math.isfinite(v) for m in out if m is not None for v in m.values()),
+                  f"DD1r {paths[key]}: finite losses on the synced steps")
+            want = (steps * per_step[0], steps * per_step[1])
+            got = (counts[key]["histogram_fwd"], counts[key]["histogram_bwd"])
+            check(got == want, f"DD1r {paths[key]}: K1 and K2 {got} in {steps} steps, "
+                               f"want {want}")
+            print(f"DD1r {paths[key]}: source {source}, sync_every {sync}; steps "
+                  f"{first}-{first + steps - 1} (batch 2 x accumulation {REHISTO_ACCUM}, bf16) "
+                  f"read back on {synced}; K1 {got[0]} and K2 {got[1]} on {smi}")
         t.close()
-    del trainers, t
-    torch.cuda.empty_cache()
-    print("DD1r plain-step imgs/s, mean of the two windows: " + ", ".join(
-        f"{paths[k]} {sum(v) / len(v):.2f}" for k, v in rates.items()))
+        del t
+        torch.cuda.empty_cache()
     return {paths[k]: c for k, c in counts.items() if k != ("DeviceDataSource", 1)}
 
 
 def phase_residency(smi) -> None:
     """DD2: a DeviceDataSource over the reference's landscape set as a
     synthetic 4319 x 256 x 256 x 3 uint8 cache and a 4319 x 3 x 64 x 64
-    fp32 pool: the device memory it takes, ms per batch at HistoGAN's 16 x
-    1, reHistoGAN's 2 x 8 (self_hist, include_g_images) and with aug_prob
-    0.5, each batch held to numpy indexing of its draws (images exact,
-    histograms to HIST_ATOL) and the on-card crop to the CPU's. Returns
-    {config: ms per batch}."""
+    fp32 pool: the device memory it takes; at HistoGAN's 16 x 1,
+    reHistoGAN's 2 x 8 (self_hist, include_g_images) and with aug_prob
+    0.5, a batch behind queued device work takes less than HOST_WAIT_MS of
+    the host (no sync), and each batch is held to numpy indexing of its
+    draws (images exact, histograms to HIST_ATOL) and the on-card crop to
+    the CPU's."""
     from histogan_tpu_torch.data.device_source import DeviceDataSource, crop_resize_u8
     from histogan_tpu_torch.tools.dp_step import synthetic_data
 
@@ -2873,20 +2451,18 @@ def phase_residency(smi) -> None:
     n, size, h = RESIDENCY_DATA[:3]
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    t0 = time.perf_counter()
     first = DeviceDataSource(cache, pool, 16, 1, seed=3, device=CARD)
     torch.cuda.synchronize()
-    upload_s, after = time.perf_counter() - t0, torch.cuda.memory_allocated()
+    after = torch.cuda.memory_allocated()
     check(after - before >= cache.nbytes + pool.nbytes,
           f"DD2: the cache and the pool on the card ({after - before} bytes)")
     print(f"DD2: {n} x {size} x {size} x 3 uint8 cache ({cache.nbytes} bytes) and {n} x 3 x {h} "
           f"x {h} fp32 pool ({pool.nbytes} bytes): torch.cuda.memory_allocated {before} -> "
-          f"{after} (+{after - before}), uploaded in {upload_s:.2f} s on {smi}")
+          f"{after} (+{after - before}) on {smi}")
     configs = {"HistoGAN 16 x 1": {},
                "reHistoGAN 2 x 8 self_hist include_g_images": dict(
                    batch_size=2, accum=8, self_hist=True, include_g_images=True),
                "HistoGAN 16 x 1 aug_prob 0.5": dict(aug_prob=0.5)}
-    out = {}
     for name, kw in configs.items():
         if first is not None:
             src, first = first, None
@@ -2894,7 +2470,8 @@ def phase_residency(smi) -> None:
             kw = {"batch_size": 16, "accum": 1, **kw}
             with contextlib.redirect_stdout(io.StringIO()):  # the aug notice
                 src = DeviceDataSource(cache, pool, seed=4, device=CARD, **kw)
-        ms = time_ms(lambda: next(src), 20)
+        for _ in range(3):  # first-call set-up outside the host-wait check
+            next(src)
         torch.cuda.synchronize()
         torch.cuda._sleep(QUEUED_CYCLES)
         t0 = time.perf_counter()
@@ -2936,13 +2513,10 @@ def phase_residency(smi) -> None:
               f"of the entries")
         crop = (f"; crop vs the CPU's crop_resize_u8 at most {crop_worst} level(s) on "
                 f"{crop_off:.2e} of the entries" if src.aug_prob > 0 else "; images exact")
-        print(f"DD2 {name}: {ms:.3f} ms per batch (CUDA events over 20, host draws included), "
-              f"{host_ms:.3f} ms of the host behind queued device work; histograms vs numpy "
-              f"max|d| {worst_h:.3e}{crop}")
-        out[name] = ms
+        print(f"DD2 {name}: {host_ms:.3f} ms of the host behind queued device work (gate "
+              f"{HOST_WAIT_MS}); histograms vs numpy max|d| {worst_h:.3e}{crop}")
         del src
         torch.cuda.empty_cache()
-    return out
 
 
 def phase_fid(t, smi) -> None:
@@ -2954,17 +2528,14 @@ def phase_fid(t, smi) -> None:
     n = 256
     weights = os.environ.pop("INCEPTION_WEIGHTS", None)
     try:
-        secs = []
+        fids = []
         for _ in range(2):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             t.calculate_fid(n)
-            torch.cuda.synchronize()
-            secs.append((time.perf_counter() - t0, t.last_fid))
+            fids.append(t.last_fid)
     finally:
         if weights is not None:
             os.environ["INCEPTION_WEIGHTS"] = weights
-    (s1, f1), (s2, f2) = secs
+    f1, f2 = fids
     rel = abs(f2 - f1) / abs(f1)
     check(math.isfinite(f1) and f1 > 0 and t.fid_provenance == "random-features",
           f"F1: FID {f1} [{t.fid_provenance}]")
@@ -2981,8 +2552,8 @@ def phase_fid(t, smi) -> None:
                        f"{FID_FEATURE_RTOL} (max|d| {gap.max().item():.3e})")
     worst, largest = gap.max().item(), cpu.abs().max().item()
     print(f"F1: calculate_fid({n}) at step {t.steps} (batch {t.cfg.batch_size}, {n} real + {n} "
-          f"EMA samples at {t.cfg.image_size} px): {f1:.4f} [{t.fid_provenance}] in {s1:.2f} s; "
-          f"again {f2:.4f} in {s2:.2f} s (the real features kept), relative {rel:.3e} (gate "
+          f"EMA samples at {t.cfg.image_size} px): {f1:.4f} [{t.fid_provenance}]; "
+          f"again {f2:.4f} (the real features kept), relative {rel:.3e} (gate "
           f"{FID_REPEAT_RTOL}); pool3 card vs CPU on 2 images at 299 px: max|d| {worst:.3e} "
           f"(gate {FID_FEATURE_ATOL}) on features up to {largest:.3f} on {smi}")
 
@@ -3023,10 +2594,10 @@ DP_G_METRIC_RTOL = 5e-4
 DP_DRIFT_METRIC_RTOL = 0.25
 DP_DRIFT_PARAM_REL = 1e-2
 D_PHASE_METRICS = ("d_loss", "gp_loss", "q_loss")
-# FS512: a plain step, then the GP+PL step (its peaks are the steady
-# state's: DiffGrad's state is made in the first update)
+# FS512: a plain step (DiffGrad's state is made in the first update), then
+# the GP+PL step
 FS512_FLAGS = [(False, False), (True, True)]
-DS_BATCHES = 8  # DS: batches of each configuration (3 warm-up, 5 timed)
+DS_BATCHES = 8  # DS: batches of each configuration, each held to the replicated source's
 # the JAX package's 512 px recipe (its configuration only)
 RECIPE_512 = dict(image_size=512, network_capacity=16, latent_dim=512, style_depth=8,
                   batch_size=8, gradient_accumulate_every=1, precision="bf16",
@@ -3061,7 +2632,7 @@ def pinned_steps(cfg, flags, seed: int, rehisto: bool = False) -> list:
 
 
 def live_params(t) -> dict:
-    """The trained parameters, copied to the CPU (off the card's peaks)."""
+    """The trained parameters, copied to the CPU (off the card's memory)."""
     return {k: v.detach().cpu() for k, v in t.reference_state_dict().items()
             if k.split(".")[0] in LIVE + ("ED",)}
 
@@ -3132,27 +2703,17 @@ def grad_gaps(what: str, got: dict, want: dict, again: dict) -> None:
                       REMAT_PARAM_REL)
 
 
-def peak_text(row: dict) -> str:
-    return (f"peak {row['peak']} bytes (the phases' forward and backward {row['peak_phases']}, "
-            f"DiffGrad's updates {row['peak_updates']})")
-
-
 def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
-              rehisto: bool = False, timed_from: int = 0, grads_steps: int = 0) -> dict:
+              rehisto: bool = False, grads_steps: int = 0) -> dict:
     """A trainer (seed 0) with ``remat``, the pinned steps of ``flags`` on
-    the card: per step the metrics, the ms (host clock after a sync) and
-    the peak of torch.cuda.max_memory_allocated, also apart for the two
-    phases' forward and backward and for DiffGrad's two updates (its
-    reset before and after each update); the K1 and K2 launches of
-    the steps; the live parameters after step ``timed_from`` - 1 (all
-    steps when 0); and for each of the first ``grads_steps`` steps the
-    gradients each phase hands to DiffGrad (fp32, on the CPU, in
-    ``grads[(step, "D" or "G")]``; those steps' ms then include the copy).
-    With ``grads_steps``, G's phase first runs alone on step 0's input
-    against the seed's D, and its gradients (summed over the micro-
-    batches) are kept as ``grads[(0, "G alone")]`` and not applied: no D
-    update's rounding reaches them."""
-    from histogan_tpu_torch.tools import dp_step
+    the card: per step the metrics, finite; the K1 and K2 launches of the
+    steps; the live parameters after them; and for each of the first
+    ``grads_steps`` steps the gradients each phase hands to DiffGrad (fp32,
+    on the CPU, in ``grads[(step, "D" or "G")]``). With ``grads_steps``,
+    G's phase first runs alone on step 0's input against the seed's D, and
+    its gradients (summed over the micro-batches) are kept as
+    ``grads[(0, "G alone")]`` and not applied: no D update's rounding
+    reaches them."""
     from histogan_tpu_torch.tools.dp_step import to_device
     from histogan_tpu_torch.train import rehisto_steps, steps
     from histogan_tpu_torch.train.rehisto_trainer import RecoloringTrainer
@@ -3164,7 +2725,7 @@ def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
     t.init_GAN()
     check(t.G.remat == remat and t.D.remat == remat, f"remat={remat} reaches G and D")
     inputs = pinned_steps(t.cfg, flags, seed, rehisto)
-    rows, params, peaks, grads = [], None, [], {}
+    metrics, grads = [], {}
     update = steps._update
     if grads_steps:
         s = inputs[0]
@@ -3185,51 +2746,36 @@ def remat_run(histogram_cuda, remat: bool, kw: dict, flags, seed: int,
             steps._update = rehisto_steps._update = update
     reset_counts(histogram_cuda)
 
-    def spied(*args):  # the peaks of each phase's forward and backward, and of its update
-        peaks.append(("phase", torch.cuda.max_memory_allocated()))
-        torch.cuda.reset_peak_memory_stats()
+    def spied(*args):  # _update averaged the gradients in place: D's phase, then G's
         update(*args)
-        peaks.append(("update", torch.cuda.max_memory_allocated()))
-        if len(rows) < grads_steps:  # _update averaged them in place: D's phase, then G's
+        if len(metrics) < grads_steps:
             phase = "D" if args[0] is t.state.opt_d else "G"
-            grads[(len(rows), phase)] = {str(i): g.detach().float().cpu()
-                                         for i, g in enumerate(args[2])}
-        torch.cuda.reset_peak_memory_stats()
+            grads[(len(metrics), phase)] = {str(i): g.detach().float().cpu()
+                                            for i, g in enumerate(args[2])}
 
     steps._update = rehisto_steps._update = spied
-    for i, s in enumerate(inputs):
-        if i == timed_from and timed_from:
-            params = live_params(t)
-        batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        peaks.clear()
-        t0 = time.perf_counter()
-        if rehisto:
-            m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, s["gp"],
-                                         **REHISTO_HYPER)
-        else:
-            m = steps.train_step(t.state, batch, draws, t.cfg, s["gp"], s["pl"])
-        torch.cuda.synchronize()
-        ms = 1e3 * (time.perf_counter() - t0)
-        phase = max(v for k, v in peaks if k == "phase")
-        upd = max(v for k, v in peaks if k == "update")
-        rows.append({"ms": ms, "peak": max(phase, upd, torch.cuda.max_memory_allocated()),
-                     "peak_phases": phase, "peak_updates": upd,
-                     "metrics": {k: v.item() for k, v in m.items()}})
-        check(all(math.isfinite(v) for v in rows[-1]["metrics"].values()),
-              f"remat={remat}: finite losses {rows[-1]['metrics']}")
-    steps._update = rehisto_steps._update = update
+    try:
+        for s in inputs:
+            batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
+            if rehisto:
+                m = rehisto_steps.train_step(t.state, batch, draws, t.cfg, s["gp"],
+                                             **REHISTO_HYPER)
+            else:
+                m = steps.train_step(t.state, batch, draws, t.cfg, s["gp"], s["pl"])
+            metrics.append({k: v.item() for k, v in m.items()})
+            check(all(math.isfinite(v) for v in metrics[-1].values()),
+                  f"remat={remat}: finite losses {metrics[-1]}")
+    finally:
+        steps._update = rehisto_steps._update = update
     counts = {"histogram_fwd": histogram_cuda.launches,
               "histogram_bwd": histogram_cuda.bwd_launches}
-    out = {"rows": rows, "counts": counts, "params": params or live_params(t), "grads": grads,
-           "state_bytes": dp_step.state_bytes(t)}
+    out = {"metrics": metrics, "counts": counts, "params": live_params(t), "grads": grads}
     del t
     torch.cuda.empty_cache()
     return out
 
 
-def phase_remat(histogram_cuda, smi) -> dict:
+def phase_remat(histogram_cuda) -> dict:
     """RM: remat at the main path's width and batch (256 px, capacity 16,
     latent 512, batch 16, fp32): a plain step and a GP+PL step, each from
     the seed's weights (a step after an update would carry the card's
@@ -3239,31 +2785,23 @@ def phase_remat(histogram_cuda, smi) -> dict:
     after each step and each phase's gradients (as handed to DiffGrad; G's
     also from its phase alone against the seed's D, which D's sign-like
     update cannot reach) to REMAT_PARAM_REL (or CARD_NOISE_FACTOR times the
-    floor), the K1 and K2 launches equal; the
-    GP+PL step's trainer then takes one more plain and GP+PL step each
-    way, timed, with their peak memory and the peak before DiffGrad's
-    updates.
-    R5: two bf16 recoloring GP steps at the CLI's defaults (batch 2 x
-    accumulation 8) with remat and without (twice, for the floor), the
-    second timed: step 0's metrics to REMAT_BF16_LOSS_RTOL, its D and G
-    gradients as RM's. R512: the
-    512 px recipe (capacity 16, batch 8, bf16 with bf16 DiffGrad state),
-    plain and GP+PL twice each way, the second pair timed.
-    Returns {"remat": {kernel: launches}} of the 256 px runs and
-    {"r512": {remat: {"rows": the timed plain and GP+PL rows,
-    "state_bytes"}}}."""
+    floor), the K1 and K2 launches equal.
+    R5: a bf16 recoloring GP step at the CLI's defaults (batch 2 x
+    accumulation 8) with remat and without (twice, for the floor): its
+    metrics to REMAT_BF16_LOSS_RTOL, its D and G gradients as RM's. R512:
+    the 512 px recipe (capacity 16, batch 8, bf16 with bf16 DiffGrad
+    state), a plain and a GP+PL step each way, finite.
+    Returns {kernel: launches} of the 256 px runs with remat."""
     kw = dict(FLAGSHIP, batch_size=16, gradient_accumulate_every=1)
     runs = {}
     for r in (False, True, "again", "again2"):
         one = remat_run(histogram_cuda, r is True, kw, [(False, False)], seed=31, grads_steps=1)
-        two = remat_run(histogram_cuda, r is True, kw, [(True, True), (False, False), (True, True)],
-                        seed=32, timed_from=1, grads_steps=1)
-        runs[r] = {"metrics": [one["rows"][0]["metrics"], two["rows"][0]["metrics"]],
+        two = remat_run(histogram_cuda, r is True, kw, [(True, True)], seed=32, grads_steps=1)
+        runs[r] = {"metrics": [one["metrics"][0], two["metrics"][0]],
                    "params": {"plain": one["params"], "GP+PL": two["params"]},
                    "grads": {(step, phase): g for step, run in (("plain", one), ("GP+PL", two))
                              for (_, phase), g in run["grads"].items()},
-                   "counts": {k: one["counts"][k] + two["counts"][k] for k in one["counts"]},
-                   "timed": two["rows"][1:]}
+                   "counts": {k: one["counts"][k] + two["counts"][k] for k in one["counts"]}}
     checked, refs = runs[True], [runs[r] for r in (False, "again", "again2")]
     plain = refs[0]
     gap, floor = median_gap(metric_gaps, checked["metrics"], [r["metrics"] for r in refs])
@@ -3287,51 +2825,35 @@ def phase_remat(histogram_cuda, smi) -> dict:
               f"{rel:.3e} (median over the 3 runs without remat; theirs {rel_floor:.3e})")
         against_floor(f"RM: remat: the {key[0]} step's {key[1]} gradient", rel, rel_floor,
                       REMAT_PARAM_REL)
-    check(plain["counts"] == checked["counts"] and plain["counts"]["histogram_fwd"] == 4
-          and plain["counts"]["histogram_bwd"] == 4,
+    check(plain["counts"] == checked["counts"] and plain["counts"]["histogram_fwd"] == 2
+          and plain["counts"]["histogram_bwd"] == 2,
           f"RM: one K1 and one K2 a step with and without remat: {plain['counts']}, "
           f"{checked['counts']}")
-    for label, r in (("without remat", plain), ("with remat", checked)):
-        p, g = r["timed"]
-        print(f"RM: 256 px capacity 16 batch 16 fp32 {label}: plain step {p['ms']:.2f} ms, "
-              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)}; K1/K2 launches "
-              f"{r['counts']} in 4 steps on {smi}")
-    del runs, plain, refs
+    counts = checked["counts"]
+    del runs, plain, refs, checked
     torch.cuda.empty_cache()
 
     re_kw = dict(REHISTO, batch_size=2, gradient_accumulate_every=REHISTO_ACCUM, **REHISTO_BF16)
-    re_runs = {r: remat_run(histogram_cuda, r is True, re_kw, [(True, False)] * 2, seed=32,
+    re_runs = {r: remat_run(histogram_cuda, r is True, re_kw, [(True, False)], seed=32,
                             rehisto=True, grads_steps=1) for r in (False, True, "again")}
-    re_gap = metric_gaps([re_runs[True]["rows"][0]["metrics"]],
-                         [re_runs[False]["rows"][0]["metrics"]])
+    re_gap = metric_gaps(re_runs[True]["metrics"], re_runs[False]["metrics"])
     check(re_gap <= REMAT_BF16_LOSS_RTOL,
           f"R5: bf16 recoloring step with remat within {REMAT_BF16_LOSS_RTOL} ({re_gap:.3e})")
     check(re_runs[True]["counts"] == re_runs[False]["counts"],
           f"R5: K1/K2 launches alike {re_runs[True]['counts']}, {re_runs[False]['counts']}")
     grad_gaps("R5: remat", *({("GP", phase): g for (_, phase), g in re_runs[r]["grads"].items()}
                              for r in (True, False, "again")))
-    for r, label in ((False, "without remat"), (True, "with remat")):
-        row = re_runs[r]["rows"][1]
-        print(f"R5: reHistoGAN bf16 GP step at batch 2 x accumulation {REHISTO_ACCUM} {label}: "
-              f"{row['ms']:.2f} ms (the second), {peak_text(row)}; launches "
-              f"{re_runs[r]['counts']} in 2 steps on {smi}")
     print(f"R5: worst metric gap remat against none {re_gap:.3e} (gate {REMAT_BF16_LOSS_RTOL})")
     del re_runs
     torch.cuda.empty_cache()
 
-    r512 = {}
     for r in (False, True):
-        run = remat_run(histogram_cuda, r, RECIPE_512, [(False, False), (True, True)] * 2,
-                        seed=33)
-        p, g = run["rows"][2:]
-        r512[r] = {"rows": [p, g], "state_bytes": run["state_bytes"]}
+        run = remat_run(histogram_cuda, r, RECIPE_512, [(False, False), (True, True)], seed=33)
         print(f"R512: 512 px capacity 16 batch 8 bf16 (bf16 DiffGrad state) "
-              f"{'with' if r else 'without'} remat: plain step {p['ms']:.2f} ms, "
-              f"{peak_text(p)}; GP+PL step {g['ms']:.2f} ms, {peak_text(g)}; state "
-              f"{run['state_bytes']} bytes on {smi}")
+              f"{'with' if r else 'without'} remat: a plain and a GP+PL step, finite losses")
         del run
         torch.cuda.empty_cache()
-    return {"remat": checked["counts"], "r512": r512}
+    return counts
 
 
 def hold_ranks_to_one(tag: str, two: list, one: dict, again: dict) -> None:
@@ -3350,7 +2872,7 @@ def hold_ranks_to_one(tag: str, two: list, one: dict, again: dict) -> None:
     d_grads = [k for k in one["grads"] if k.startswith("D.")]
     d_rel = param_rel_err(two[0]["grads"], {k: one["grads"][k] for k in d_grads})
     want = {k: v for k, v in one["state"].items() if k.split(".")[0] in LIVE}
-    gap, floor = (metric_gaps(r["metrics"], one["metrics"]) for r in (two[0], again))
+    gap = metric_gaps(two[0]["metrics"], one["metrics"])
     rel, rel_floor = (param_rel_err(r["state"], want) for r in (two[0], again))
     print(f"{tag}: 2 ranks against one process: step 0's D losses {d_gap:.3e} (gate "
           f"{REMAT_METRIC_RTOL}), D's step-0 gradient global-norm relative error {d_rel:.3e} "
@@ -3424,12 +2946,11 @@ def phase_ranks() -> dict:
     cases = [dp_case(work / "dp"), dp_case(work / "fs", param_sharding="fsdp"),
              fs512_case(work / "fs512"), *sources.values()]
     torch.save(cases, work / "cases.pt")
-    t0 = time.perf_counter()
     ranks = dp_step.spawn(work / "cases.pt", work / "out", DP_RANKS, "gloo", "cuda:0",
                           timeout=900)
     shutil.rmtree(work / "out", ignore_errors=True)
     print(f"ranks: the {len(cases)} cases of DP, FS, FS512 and DS on {DP_RANKS} gloo ranks on "
-          f"cuda:0 in one spawn, {time.perf_counter() - t0:.2f} s")
+          f"cuda:0 in one spawn")
     per_case = [[r[i] for r in ranks] for i in range(len(cases))]
     return {"dp": per_case[0], "fs": per_case[1], "fs512": per_case[2],
             "ds": dict(zip(sources, per_case[3:]))}
@@ -3452,9 +2973,7 @@ def torchrun_cli(tag: str, out: Path, *extra) -> list:
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [str(ROOT),
                                                                    os.environ.get("PYTHONPATH")])),
            "NCCL_DEBUG": "INFO"}
-    t0 = time.perf_counter()
     proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
     log = proc.stdout + proc.stderr
     check(proc.returncode == 0, f"{tag}: torchrun CLI exit {proc.returncode}:\n{log[-4000:]}")
     check("NCCL INFO" in log, f"{tag}: the CLI's process group runs over NCCL (NCCL_DEBUG lines)")
@@ -3462,17 +2981,9 @@ def torchrun_cli(tag: str, out: Path, *extra) -> list:
     check("model_0.pt" in made and (out / "results" / "dp" / "metrics.jsonl").is_file(),
           f"{tag}: the CLI under torchrun wrote its checkpoint and log ({made})")
     print(f"{tag}: torchrun --nproc_per_node 1 -m histogan_tpu_torch.cli.histogan --num_devices 1 "
-          f"{' '.join(extra)} (NCCL; 256 px, capacity 4, batch {DP_BATCH}, 2 steps) exit 0 in "
-          f"{secs:.2f} s; wrote {made}")
+          f"{' '.join(extra)} (NCCL; 256 px, capacity 4, batch {DP_BATCH}, 2 steps) exit 0; "
+          f"wrote {made}")
     return made
-
-
-def rank_rows(two: list) -> str:
-    """Each rank's ms a step and peak of max_memory_allocated."""
-    return "; ".join(
-        f"rank {r}: {' / '.join(f'{x:.2f}' for x in res['ms'])} ms, peak "
-        f"{max(p['peak'] for p in res['peaks'])} bytes, state {res['state_bytes']} bytes"
-        for r, res in enumerate(two))
 
 
 def phase_data_parallel(histogram_cuda, smi, two: list) -> tuple:
@@ -3493,9 +3004,8 @@ def phase_data_parallel(histogram_cuda, smi, two: list) -> tuple:
         check(r["launches"] == {"histogram_fwd": len(DP_FLAGS), "histogram_bwd": len(DP_FLAGS)},
               f"DP: one K1 and one K2 a step on every rank: {r['launches']}")
     print(f"DP: 2 gloo ranks on cuda:0 at global batch {DP_BATCH} (256 px, capacity 16, fp32), "
-          f"steps GP+PL/plain/GP: {rank_rows(two)}; one process at batch {DP_BATCH} "
-          f"{' / '.join(f'{x:.2f}' for x in one['ms'])} ms, state {one['state_bytes']} bytes; "
-          f"ranks bitwise equal; launches per rank {two[0]['launches']} on {smi}")
+          f"steps GP+PL/plain/GP against one process at batch {DP_BATCH}; ranks bitwise equal; "
+          f"launches per rank {two[0]['launches']} on {smi}")
     launches = {"dp_rank0": two[0]["launches"], "dp_rank1": two[1]["launches"]}
     for r in two:
         del r["grads"]
@@ -3508,14 +3018,13 @@ def phase_fsdp(histogram_cuda, smi, dp: dict, two: list) -> dict:
     (``phase_ranks``: ``two``): DP's
     gates against DP's one-process runs (``hold_ranks_to_one``), the
     gathered state bitwise equal on both ranks, K1 and K2 once a step on
-    each; each rank's state bytes, peak and ms a step beside DP's ranks';
-    whether FSDP's parameters are bitwise DP's. Then ``torchrun
+    each, each rank's state under 0.6 of DP's rank's; whether FSDP's
+    parameters are bitwise DP's. Then ``torchrun
     --nproc_per_node 1`` over NCCL through the real CLI for 2 steps with
     ``--param_sharding fsdp`` (capacity 4, so that its step-0 checkpoint
     stays small; at one process the replicated path), and its model_0.pt
     into a one-process replicated Trainer. Returns {path: {kernel:
     launches}}."""
-    from histogan_tpu_torch.parallel import mesh
     from histogan_tpu_torch.train.trainer import Trainer
 
     hold_ranks_to_one("FS", two, dp["one"], dp["again"])
@@ -3527,8 +3036,8 @@ def phase_fsdp(histogram_cuda, smi, dp: dict, two: list) -> dict:
     check(all(s < 0.6 for s in share), f"FS: each rank holds under 0.6 of DP's state ({share})")
     same = all(torch.equal(two[0]["state"][k], dp_two[0]["state"][k]) for k in two[0]["state"])
     print(f"FS: 2 gloo ranks on cuda:0, param_sharding='fsdp', global batch {DP_BATCH} (256 px, "
-          f"capacity 16, fp32), steps GP+PL/plain/GP: {rank_rows(two)}; DP's ranks: "
-          f"{rank_rows(dp_two)}; state per rank {share[0]:.4f} and {share[1]:.4f} of DP's; "
+          f"capacity 16, fp32), steps GP+PL/plain/GP: state per rank {share[0]:.4f} and "
+          f"{share[1]:.4f} of DP's; "
           f"parameters after the steps bitwise DP's: {same}; launches per rank "
           f"{two[0]['launches']}; collectives all_gather_into_tensor and reduce_scatter_tensor "
           f"(torch {torch.__version__}, staged through the host on gloo) on {smi}")
@@ -3551,14 +3060,12 @@ def phase_fsdp(histogram_cuda, smi, dp: dict, two: list) -> dict:
     return launches
 
 
-def phase_fsdp512(histogram_cuda, smi, r512: dict, two: list) -> dict:
+def phase_fsdp512(smi, two: list) -> dict:
     """FS512: ``fs512_case`` on the two gloo ranks at a global batch of 8
     (``phase_ranks``: ``two``), a plain step (DiffGrad's state is made in
     the first update) and the GP+PL step: finite metrics, the gathered
-    state alike on both ranks (its digest), K1 and K2 on each rank; per
-    rank and step the state bytes, the step's peak and the phases' forward
-    and backward's apart from DiffGrad's updates', beside R512's one
-    process with remat. Returns {path: {kernel: launches}}."""
+    state alike on both ranks (its digest), K1 and K2 on each rank.
+    Returns {path: {kernel: launches}}."""
     flags = FS512_FLAGS
     check(all(math.isfinite(v) for r in two for m in r["metrics"] for v in m.values()),
           f"FS512: finite metrics {two[0]['metrics']}")
@@ -3566,25 +3073,17 @@ def phase_fsdp512(histogram_cuda, smi, r512: dict, two: list) -> dict:
     check(all(r["launches"] == {"histogram_fwd": len(flags), "histogram_bwd": len(flags)}
               for r in two), f"FS512: one K1 and one K2 a step on every rank "
                              f"{[r['launches'] for r in two]}")
-    one = r512[True]  # its rows: plain, GP+PL, as FS512_FLAGS
-    for i, label in enumerate(("plain", "GP+PL")):
-        print(f"FS512: the {label} step, 512 px capacity 16 global batch 8 bf16 (bf16 DiffGrad "
-              f"state) remat, FSDP over 2 gloo ranks: "
-              + "; ".join(f"rank {r}: {res['ms'][i]:.2f} ms, state {res['state_bytes']} bytes, "
-                          f"{peak_text(res['peaks'][i])}" for r, res in enumerate(two))
-              + f"; R512's one process with remat: {one['rows'][i]['ms']:.2f} ms, state "
-                f"{one['state_bytes']} bytes, {peak_text(one['rows'][i])} on {smi}")
-    print(f"FS512: metrics {two[0]['metrics']}")
+    print(f"FS512: a plain and a GP+PL step, 512 px capacity 16 global batch 8 bf16 (bf16 "
+          f"DiffGrad state) remat, FSDP over 2 gloo ranks: metrics {two[0]['metrics']} on {smi}")
     return {"fsdp512_rank0": two[0]["launches"], "fsdp512_rank1": two[1]["launches"]}
 
 
-def phase_sharded_source(smi, dd2: dict, ranks: dict) -> None:
+def phase_sharded_source(smi, ranks: dict) -> None:
     """DS: the device dataset's "sharded" placement over DD2's synthetic
     4319 x 256² cache and pool on the two gloo ranks (``ds_cases``, run in
     ``phase_ranks``: ``ranks``): each rank holds ceil(4319 / 2) rows, and
     the two ranks' batches side by side are bit for bit the replicated
-    source's global batches of the same seed, at DD2's configurations; ms
-    per batch (CUDA events, the exchange included) beside DD2's."""
+    source's global batches of the same seed, at DD2's configurations."""
     from histogan_tpu_torch.data.device_source import DeviceDataSource
     from histogan_tpu_torch.tools.dp_step import synthetic_data
 
@@ -3606,13 +3105,9 @@ def phase_sharded_source(smi, dd2: dict, ranks: dict) -> None:
             check(all(torch.equal(torch.cat([r["batches"][i][k] for r in two], dim=1),
                                   v.cpu()) for k, v in want.items()),
                   f"DS {name}: batch {i} of the two ranks is the replicated source's")
-        ms = [sum(r["ms"][3:]) / len(r["ms"][3:]) for r in two]
         print(f"DS {name}: sharded over 2 gloo ranks on cuda:0 (budget {c['budget']} bytes a "
               f"device, {total} in all): {rows} rows and {two[0]['bytes']} bytes a rank; "
-              f"{DS_BATCHES} batches bit for bit the replicated source's; "
-              f"{ms[0]:.3f} / {ms[1]:.3f} ms per batch on ranks 0 / 1 (CUDA events, the "
-              f"exchange through gloo included; batches 3-{DS_BATCHES - 1}) against DD2's "
-              f"replicated {dd2[name]:.3f} on {smi}")
+              f"{DS_BATCHES} batches bit for bit the replicated source's on {smi}")
         del src
     torch.cuda.empty_cache()
 
@@ -3620,9 +3115,8 @@ def phase_sharded_source(smi, dd2: dict, ranks: dict) -> None:
 def phase_debug(smi) -> None:
     """DB: ``checkify_step`` around one plain 256 px step at batch 16 (fp32):
     it passes, and the mode saw the backward's ops, which the autograd
-    engine runs on a thread of its own on a GPU; its seconds beside the
-    step's without it. With one of D's weights NaN the same step raises a
-    FloatCheckError that names an op."""
+    engine runs on a thread of its own on a GPU. With one of D's weights
+    NaN the same step raises a FloatCheckError that names an op."""
     from histogan_tpu_torch.train import steps
     from histogan_tpu_torch.train.trainer import Trainer
     from histogan_tpu_torch.utils.debug import FloatCheckError, checkify_step
@@ -3634,14 +3128,8 @@ def phase_debug(smi) -> None:
     s = pinned_steps(t.cfg, [(False, False)], seed=51)[0]
     batch, draws = to_device(s["batch"], t.device), to_device(s["draws"], t.device)
     step = checkify_step(steps.train_step)
-    secs = []
-    for fn in (steps.train_step, steps.train_step, step):  # the first warms up
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        m = fn(t.state, batch, draws, t.cfg, False, False)
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        check(all(math.isfinite(v.item()) for v in m.values()), "DB: a clean step")
+    m = step(t.state, batch, draws, t.cfg, False, False)
+    check(all(math.isfinite(v.item()) for v in m.values()), "DB: a clean step")
     ops = step.checks.ops
     backward = {k: v for k, v in ops.items() if "backward" in k}
     check(ops["convolution_backward"] > 0,
@@ -3656,7 +3144,7 @@ def phase_debug(smi) -> None:
     check(err.op.startswith("aten."), f"DB: the error names an op ({err})")
     print(f"DB: checkify_step on a plain 256 px batch 16 step: passes, {sum(ops.values())} ops "
           f"checked ({sum(backward.values())} of the backward's, e.g. convolution_backward "
-          f"{ops['convolution_backward']}), {secs[2]:.2f} s against {secs[1]:.2f} s without; "
+          f"{ops['convolution_backward']}); "
           f"with D.blocks.0.conv_res.weight[0, 0, 0, 0] = NaN: FloatCheckError '{err}' on {smi}")
     del t
     torch.cuda.empty_cache()
@@ -3677,13 +3165,11 @@ def phase_profiler(histogram_cuda, smi) -> dict:
     reset_counts(histogram_cuda)
     pool = histogram_cuda.launches
     t.enable_profiling(1, 2)
-    t0 = time.perf_counter()
     try:
         for _ in range(3):
             t.train()
     finally:
         t.close()
-    secs = time.perf_counter() - t0
     counts = {"histogram_fwd": histogram_cuda.launches - pool,
               "histogram_bwd": histogram_cuda.bwd_launches}
     path = t.profiler_hook.path
@@ -3693,7 +3179,7 @@ def phase_profiler(histogram_cuda, smi) -> dict:
     found = {k: sum(k in n for n in kernels) for k in K1_KERNELS + K2_KERNELS}
     check(all(v >= 2 for v in found.values()),
           f"PF: K1's and K2's kernels in the trace of 2 steps: {found}")
-    print(f"PF: enable_profiling(1, 2) over 3 steps ({secs:.2f} s): {path.name}, "
+    print(f"PF: enable_profiling(1, 2) over 3 steps: {path.name}, "
           f"{path.stat().st_size} bytes, {len(kernels)} kernels, of them {found}; K1/K2 "
           f"launches {counts} in the 3 steps on {smi}")
     del t
@@ -3702,10 +3188,7 @@ def phase_profiler(histogram_cuda, smi) -> dict:
 
 
 def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
-    parser.add_argument("--profile", type=Path, default=None, metavar="DIR",
-                        help="also profile the train step; tables under DIR")
-    profile = parser.parse_args(argv).profile
+    argparse.ArgumentParser(description="Checks of the port on one GPU.").parse_args(argv)
     t_start = time.perf_counter()
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -3724,46 +3207,35 @@ def main(argv=None) -> int:
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     shutil.rmtree(WORK, ignore_errors=True)
 
-    def timed(phase, fn, *args):
-        t0 = time.perf_counter()
-        out = fn(*args)
-        print(f"seconds: phase {phase} {time.perf_counter() - t0:.2f}")
-        return out
-
     hmma = timed("2", phase_build, histogram_cuda)
     fwd_err, fwd_rows = timed("3", phase_forward, histogram_cuda, dev)
     sampling_launches, sampling_u1 = timed("4-5", phase_sampling, histogram_cuda, dev, smi)
     bwd_err, bwd_rows = timed("6", phase_backward, histogram_cuda, dev)
     upsample_rows = timed("U", phase_upsample, dev)
     timed("7", phase_loss_gradient, dev)
-    counts, rate, _ = timed("8", phase_train, histogram_cuda, smi, profile)
-    counts_bf16, _, _ = timed("8b", phase_train, histogram_cuda, smi, profile, BF16, rate)
+    counts = timed("8", phase_train, histogram_cuda, smi)
+    counts_bf16 = timed("8b", phase_train, histogram_cuda, smi, BF16)
     counts_loaders = timed("DD1", phase_loaders, histogram_cuda, smi)
     counts_loaders.update(timed("DD1r", phase_loaders_rehisto, histogram_cuda, smi))
-    dd2 = timed("DD2", phase_residency, smi)
-    counts_d, _, _ = timed("D1", phase_train, histogram_cuda, smi, profile, D_OPTIONS, rate,
-                           "train d options")
-    counts_d_bf16, _, _ = timed("D1b", phase_train, histogram_cuda, smi, profile,
-                                D_OPTIONS_BF16, rate, "train d options bf16")
+    timed("DD2", phase_residency, smi)
+    counts_d = timed("D1", phase_train, histogram_cuda, smi, D_OPTIONS, "train d options")
+    counts_d_bf16 = timed("D1b", phase_train, histogram_cuda, smi, D_OPTIONS_BF16,
+                          "train d options bf16")
     counts_d_re = timed("D1r", phase_rehisto_d_options, histogram_cuda, smi)
-    # the timed reHistoGAN phases before the comparisons that run steps on the CPU
     counts_recolor = timed("R1", phase_recolor, histogram_cuda, dev, smi)
     counts_recolor_bf16 = timed("R1b", phase_recolor_bf16, histogram_cuda, smi)
     timed("R4", phase_fullres, smi)
     pools = timed("H1", phase_pool_clis, histogram_cuda, smi)
-    counts_re, rate_re = timed("R2", phase_rehisto_train, histogram_cuda, smi, profile)
-    counts_re_bf16, _ = timed("R2b", phase_rehisto_train, histogram_cuda, smi, profile,
-                              REHISTO_BF16, rate_re)
-    timed("P2", phase_projection_timed, smi, profile)
+    counts_re = timed("R2", phase_rehisto_train, histogram_cuda, smi)
+    counts_re_bf16 = timed("R2b", phase_rehisto_train, histogram_cuda, smi, REHISTO_BF16)
     counts_projection = timed("P3", phase_projection_clis, histogram_cuda, smi)
-    counts_remat = timed("RM", phase_remat, histogram_cuda, smi)
+    counts_remat = timed("RM", phase_remat, histogram_cuda)
     ranks = timed("ranks", phase_ranks)
     counts_dp, dp = timed("DP", phase_data_parallel, histogram_cuda, smi, ranks["dp"])
     counts_dp.update(timed("FS", phase_fsdp, histogram_cuda, smi, dp, ranks["fs"]))
     del dp
-    counts_dp.update(timed("FS512", phase_fsdp512, histogram_cuda, smi, counts_remat["r512"],
-                           ranks["fs512"]))
-    timed("DS", phase_sharded_source, smi, dd2, ranks["ds"])
+    counts_dp.update(timed("FS512", phase_fsdp512, smi, ranks["fs512"]))
+    timed("DS", phase_sharded_source, smi, ranks["ds"])
     del ranks
     timed("DB", phase_debug, smi)
     counts_profiler = timed("PF", phase_profiler, histogram_cuda, smi)
@@ -3810,7 +3282,7 @@ def main(argv=None) -> int:
                               "create_hist_data": pools["create_hist_data"]["histogram_fwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_fwd"],
                               **counts_projection,
-                              "training_remat": counts_remat["remat"]["histogram_fwd"],
+                              "training_remat": counts_remat["histogram_fwd"],
                               **{f"training_{k}": c["histogram_fwd"]
                                  for k, c in counts_dp.items()},
                               "training_profiled": counts_profiler["histogram_fwd"]},
@@ -3832,7 +3304,7 @@ def main(argv=None) -> int:
                               **{k: c["histogram_bwd"] for k, c in counts_loaders.items()},
                               "create_hist_data": pools["create_hist_data"]["histogram_bwd"],
                               "create_hist_sample": pools["create_hist_sample"]["histogram_bwd"],
-                              "training_remat": counts_remat["remat"]["histogram_bwd"],
+                              "training_remat": counts_remat["histogram_bwd"],
                               **{f"training_{k}": c["histogram_bwd"]
                                  for k, c in counts_dp.items()},
                               "training_profiled": counts_profiler["histogram_bwd"]},

@@ -27,7 +27,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -121,53 +120,26 @@ def _draws(seed: int, latent_dim: int, image_size: int) -> Dict[str, torch.Tenso
             "z_random_styles": torch.randn((1, latent_dim), generator=g)}
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _leaves(variables: dict) -> List[torch.Tensor]:
     return [x for v in variables.values() for x in (v if isinstance(v, list) else [v])]
 
 
 def _run_optimization(loss_fn, optimizer, variables, num_train_steps, log_every,
-                      save_every, on_log, on_save, chunk_steps=None, perf_out=None):
+                      save_every, on_log, on_save):
     """Eager Adam steps: ``loss_fn(variables) -> (loss, aux)``, backward,
     ``optimizer.step()``. ``on_log(t, aux)`` runs where ``t % log_every ==
     0`` (with the aux of step ``t``, from before its update) and
     ``on_save(t, variables)`` where ``(t + 1) % save_every == 0`` (after
-    it): the JAX package's cadence.
-
-    ``chunk_steps`` is the JAX package's argument, which splits its
-    scanned dispatches with boundaries that carry no host event. Eager
-    steps have no dispatch to split, so it changes nothing.
-    ``perf_out`` (a dict) opts into steady-state timing: the window opens
-    after the first step has synchronised and closes on a synchronise
-    after the last, so first-call set-up and the renders, jpgs and npz
-    around the loop are left out."""
-    del chunk_steps
-    device = _leaves(variables)[0].device
-    t_mark, steps_at_mark = None, 0
+    it): the JAX package's cadence."""
     for t in range(num_train_steps):
         optimizer.zero_grad(set_to_none=True)
         loss, aux = loss_fn(variables)
         loss.backward()
         optimizer.step()
-        if perf_out is not None and t_mark is None:
-            _sync(device)  # first step done: set-up paid
-            t_mark, steps_at_mark = time.perf_counter(), t + 1
         if log_every and t % log_every == 0:
             on_log(t, tuple(a.detach() for a in aux))
         if (t + 1) % save_every == 0:
             on_save(t, variables)
-    if perf_out is not None and t_mark is not None:
-        _sync(device)
-        dt = time.perf_counter() - t_mark
-        steps = num_train_steps - steps_at_mark
-        perf_out["opt_window_steps"] = steps
-        perf_out["opt_window_seconds"] = dt
-        if steps > 0 and dt > 0:
-            perf_out["opt_steps_per_sec"] = steps / dt
     return variables
 
 
@@ -273,8 +245,7 @@ def _noise_kwargs(v: dict, in_noise: torch.Tensor) -> dict:
 
 def _optimize(run: _Inversion, variables, render, style_reg, dump, *, latent_noise,
               optimize_noise, pixel_loss_weight, vgg_loss_weight, noise_reg_weight,
-              num_train_steps, learning_rate, pixel_loss, save_every, log_every, chunk_steps,
-              perf_out) -> Path:
+              num_train_steps, learning_rate, pixel_loss, save_every, log_every) -> Path:
     """The loop both tools share: start render, Adam with the logs and
     saves, the final npz and render."""
     out_dir, filename, target, vgg = run.out_dir, run.filename, run.target, run.vgg
@@ -321,7 +292,7 @@ def _optimize(run: _Inversion, variables, render, style_reg, dump, *, latent_noi
 
     variables = _run_optimization(
         loss_fn, optimizer, variables, num_train_steps, log_every, save_every,
-        on_log, on_save, chunk_steps=chunk_steps, perf_out=perf_out,
+        on_log, on_save,
     )
 
     dump(variables, "final")
@@ -346,8 +317,7 @@ def project_gaussian(trainer, input_image: str, *, results_dir: str,
                      noise_reg_weight: float = 0.0, style_reg_weight: float = 0.0,
                      num_train_steps: int = 10000, learning_rate: float = 2e-4,
                      pixel_loss: str = "L1", save_every: int = 500,
-                     seed: int = 0, log_every: int = 1,
-                     chunk_steps: int = None, perf_out: dict = None) -> Path:
+                     seed: int = 0, log_every: int = 1) -> Path:
     """Optimize z-space style rows (+ noise) to reconstruct
     ``input_image``; saves intermediate jpgs + npz and a final npz.
     Returns the output directory."""
@@ -376,8 +346,7 @@ def project_gaussian(trainer, input_image: str, *, results_dir: str,
         optimize_noise=optimize_noise, pixel_loss_weight=pixel_loss_weight,
         vgg_loss_weight=vgg_loss_weight, noise_reg_weight=noise_reg_weight,
         num_train_steps=num_train_steps, learning_rate=learning_rate,
-        pixel_loss=pixel_loss, save_every=save_every, log_every=log_every,
-        chunk_steps=chunk_steps, perf_out=perf_out)
+        pixel_loss=pixel_loss, save_every=save_every, log_every=log_every)
 
 
 def project_to_latent(trainer, input_image: str, *, results_dir: str,
@@ -386,8 +355,7 @@ def project_to_latent(trainer, input_image: str, *, results_dir: str,
                       noise_reg_weight: float = 0.0, style_reg_weight: float = 0.0,
                       num_train_steps: int = 10000, learning_rate: float = 2e-4,
                       pixel_loss: str = "L1", save_every: int = 500,
-                      seed: int = 0, log_every: int = 1,
-                      chunk_steps: int = None, perf_out: dict = None) -> Path:
+                      seed: int = 0, log_every: int = 1) -> Path:
     """Optimize per-block post-projection styles directly
     (projection_to_latent.py:420-545)."""
     nl = trainer.cfg.num_layers
@@ -433,8 +401,7 @@ def project_to_latent(trainer, input_image: str, *, results_dir: str,
         optimize_noise=optimize_noise, pixel_loss_weight=pixel_loss_weight,
         vgg_loss_weight=vgg_loss_weight, noise_reg_weight=noise_reg_weight,
         num_train_steps=num_train_steps, learning_rate=learning_rate,
-        pixel_loss=pixel_loss, save_every=save_every, log_every=log_every,
-        chunk_steps=chunk_steps, perf_out=perf_out)
+        pixel_loss=pixel_loss, save_every=save_every, log_every=log_every)
 
 
 # --------------------------------------------------------------- recolor

@@ -39,13 +39,10 @@ Each rank writes ``OUT_DIR/rank<r>.pt``: per case the metrics of each step,
 the state dict after them, the weights right after ``init_GAN``
 (``initial``, trainer cases), the gradients that DiffGrad applied,
 the bytes of training state the rank holds (``state_bytes``), and for
-step cases each step's milliseconds (host clock, after a device sync),
-on a GPU its peak of ``max_memory_allocated``, whole and apart for the
-phases' forward and backward and for DiffGrad's updates (``peaks``), and
-the histogram kernels' launches (``ops/histogram_cuda.py``'s counts; 0
-on the CPU, which runs their plain versions). A source case writes the
-placement, the rows and bytes the rank holds, its batches (on the CPU)
-and the ms per batch (CUDA events on a GPU).
+step cases the histogram kernels' launches (``ops/histogram_cuda.py``'s
+counts; 0 on the CPU, which runs their plain versions). A source case
+writes the placement, the rows and bytes the rank holds and its batches
+(on the CPU).
 ``run_cases`` runs the same cases in one process (the reference).
 """
 
@@ -118,11 +115,6 @@ def synthetic_data(n: int, size: int, hist_bin: int, seed: int):
     return cache, pool
 
 
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-
-
 def _cpu_state(t, keep=None) -> dict:
     """The reference state dict on the CPU, only the prefixes of ``keep``
     (all for None)."""
@@ -151,49 +143,21 @@ def _run_steps(case: dict, device) -> dict:
     histogram_cuda.launches = histogram_cuda.bwd_launches = 0
     prefixes = ("ED", "H", "G", "D") if rehisto else ("S", "H", "G", "D")
     grads_step = case.get("grads_step", len(case["steps"]) - 1)
-    metrics, ms, grads, peaks = [], [], None, []
-    cuda = t.device.type == "cuda"
-    update, marks = steps._update, []
-
-    def spied(*args):  # the peaks of the phases' forward and backward, and of the updates
-        marks.append(("phase", torch.cuda.max_memory_allocated(t.device)))
-        torch.cuda.reset_peak_memory_stats(t.device)
-        update(*args)
-        marks.append(("update", torch.cuda.max_memory_allocated(t.device)))
-        torch.cuda.reset_peak_memory_stats(t.device)
-
-    if cuda:
-        steps._update = rehisto_steps._update = spied
-    try:
-        for s in case["steps"]:
-            batch = {k: parallel.local_slice(v, dim=1).to(t.device) for k, v in s["batch"].items()}
-            draws = to_device(copy.deepcopy(s["draws"]), t.device)
-            _sync(t.device)
-            if cuda:
-                torch.cuda.reset_peak_memory_stats(t.device)
-                marks.clear()
-            t0 = time.perf_counter()
-            if rehisto:
-                m = rehisto_steps.train_step(t.state, batch, rehisto_steps.local_draws(draws),
-                                             t.cfg, s["gp"], **case["hyper"])
-            else:
-                m = steps.train_step(t.state, batch, steps.local_draws(draws), t.cfg, s["gp"],
-                                     s["pl"], s.get("ema", False))
-            _sync(t.device)
-            ms.append(1e3 * (time.perf_counter() - t0))
-            if cuda:
-                phase = max(v for k, v in marks if k == "phase")
-                upd = max(v for k, v in marks if k == "update")
-                peaks.append({"peak": max(phase, upd, torch.cuda.max_memory_allocated(t.device)),
-                              "peak_phases": phase, "peak_updates": upd})
-            metrics.append({k: v.item() for k, v in m.items()})
-            if len(metrics) - 1 == grads_step:
-                grads = _applied_grads(t.state, prefixes)
-    finally:
-        steps._update = rehisto_steps._update = update
+    metrics, grads = [], None
+    for s in case["steps"]:
+        batch = {k: parallel.local_slice(v, dim=1).to(t.device) for k, v in s["batch"].items()}
+        draws = to_device(copy.deepcopy(s["draws"]), t.device)
+        if rehisto:
+            m = rehisto_steps.train_step(t.state, batch, rehisto_steps.local_draws(draws),
+                                         t.cfg, s["gp"], **case["hyper"])
+        else:
+            m = steps.train_step(t.state, batch, steps.local_draws(draws), t.cfg, s["gp"],
+                                 s["pl"], s.get("ema", False))
+        metrics.append({k: v.item() for k, v in m.items()})
+        if len(metrics) - 1 == grads_step:
+            grads = _applied_grads(t.state, prefixes)
     state = _digest(t) if case.get("digest") else _cpu_state(t, case.get("keep"))
-    out = {"metrics": metrics, "state": state, "ms": ms, "peaks": peaks,
-           "state_bytes": state_bytes(t),
+    out = {"metrics": metrics, "state": state, "state_bytes": state_bytes(t),
            "launches": {"histogram_fwd": histogram_cuda.launches,
                         "histogram_bwd": histogram_cuda.bwd_launches}}
     if grads is not None:
@@ -244,23 +208,9 @@ def _run_source(case: dict, device) -> dict:
                                     case["batch_size"], case["accum"], seed=case.get("seed", 3),
                                     device=device, budget=case["budget"], **opts)
     del cache, pool
-    dev = torch.device(device)
-    batches, ms = [], []
-    for _ in range(case["batches"]):
-        _sync(dev)
-        if dev.type == "cuda":
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            batch = next(src)
-            end.record()
-            end.synchronize()
-            ms.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            batch = next(src)
-            ms.append(1e3 * (time.perf_counter() - t0))
-        batches.append({k: v.cpu().clone() for k, v in batch.items()})
-    return {"shard_cache": src.shard_cache, "rows": src.rows, "ms": ms, "batches": batches,
+    batches = [{k: v.cpu().clone() for k, v in next(src).items()}
+               for _ in range(case["batches"])]
+    return {"shard_cache": src.shard_cache, "rows": src.rows, "batches": batches,
             "bytes": src._images.numel() + src._pool.numel() * src._pool.element_size()}
 
 

@@ -345,12 +345,10 @@ def test_recolor_of_a_jax_projection_matches_jax(runs, jax_trainer, port_trainer
     np.testing.assert_allclose(pixels["port"], pixels["jax"], atol=ATOL)
 
 
-def test_run_optimization_cadence_chunk_steps_and_perf_window():
+def test_run_optimization_cadence():
     """The JAX package's cadence on a toy loss (log where t % 3 == 0, save
-    where (t + 1) % 4 == 0), the trajectory of Adam (float64 by hand, and
-    optax's within its fp32 bias correction); an
-    event-free ``chunk_steps`` changes nothing; ``perf_out``'s window
-    covers every step after the first."""
+    where (t + 1) % 4 == 0), and the trajectory of Adam (float64 by hand,
+    and optax's within its fp32 bias correction)."""
     target = np.arange(4.0, dtype=np.float32)
 
     def jax_loss(v, c):
@@ -365,20 +363,17 @@ def test_run_optimization_cadence_chunk_steps_and_perf_window():
         log_every=3, save_every=4, on_log=lambda i, aux: logs_j.append((i, float(aux["loss"]))),
         on_save=lambda i, v: saves_j.append(i))
 
-    def run(**kw):
-        x = torch.zeros(4, requires_grad=True)
-        logs, saves = [], []
+    x = torch.zeros(4, requires_grad=True)
+    logs, saves = [], []
 
-        def loss_fn(v):
-            loss = torch.sum((v["x"] - torch.from_numpy(target)) ** 2)
-            return loss, (loss,)
+    def loss_fn(v):
+        loss = torch.sum((v["x"] - torch.from_numpy(target)) ** 2)
+        return loss, (loss,)
 
-        v = projection._run_optimization(
-            loss_fn, torch.optim.Adam([x], lr=0.1), {"x": x}, 10, 3, 4,
-            lambda i, aux: logs.append((i, float(aux[0]))), lambda i, v: saves.append(i), **kw)
-        return v["x"].detach().numpy(), logs, saves
-
-    got, logs, saves = run()
+    v = projection._run_optimization(
+        loss_fn, torch.optim.Adam([x], lr=0.1), {"x": x}, 10, 3, 4,
+        lambda i, aux: logs.append((i, float(aux[0]))), lambda i, v: saves.append(i))
+    got = v["x"].detach().numpy()
     assert [i for i, _ in logs] == [i for i, _ in logs_j] == [0, 3, 6, 9]
     assert saves == saves_j == [3, 7]
     # optax takes Adam's bias correction 1 - 0.999^t in fp32 (0.999 rounds
@@ -395,9 +390,3 @@ def test_run_optimization_cadence_chunk_steps_and_perf_window():
                                rtol=1e-6)
     np.testing.assert_allclose(got, np.asarray(want["x"]), atol=1e-4)
     np.testing.assert_allclose([l for _, l in logs], [l for _, l in logs_j], rtol=1e-4)
-    perf = {}
-    chunked, logs2, saves2 = run(chunk_steps=2, perf_out=perf)
-    assert logs2 == logs and saves2 == saves
-    np.testing.assert_array_equal(chunked, got)
-    assert perf["opt_window_steps"] == 9
-    assert perf["opt_window_seconds"] > 0 and perf["opt_steps_per_sec"] > 0
