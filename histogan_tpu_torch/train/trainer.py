@@ -93,7 +93,8 @@ from histogan_tpu_torch.train.steps import cast_module, draw_step, train_step
 from histogan_tpu_torch.utils.config import HistoGANConfig
 from histogan_tpu_torch.utils.image_io import save_image_grid
 from histogan_tpu_torch.utils.inits import reset_parameters_
-from histogan_tpu_torch.utils.logging import MetricsLogger, ProfilerHook, readback, span
+from histogan_tpu_torch.utils.logging import (MetricsLogger, ProfilerHook, count, readback,
+                                              span)
 from histogan_tpu_torch.utils.platform import setup_runtime
 
 
@@ -115,6 +116,60 @@ DTYPES = {None: torch.float32, "fp32": torch.float32, "bf16": torch.bfloat16}
 def _check_choice(name: str, value, allowed) -> None:
     if value not in allowed:
         raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
+
+
+class HostStaging:
+    """Chunks of a CUDA device's output copied to the host under the work
+    that follows them: two pinned host buffers of one chunk, reused from
+    call to call (made anew only for a chunk that does not fit), and a side
+    stream of the device for the copies. Traced, each chunk's copy is span
+    ``sync.images``, its CUDA events on the side stream (the copy's own
+    device time), and one of counter ``readback_chunks``."""
+
+    def __init__(self, device):
+        self.stream = torch.cuda.Stream(device)
+        self.buffers: List[torch.Tensor] = []
+        self.copies = 0
+
+    def gather(self, chunks, n: int) -> torch.Tensor:
+        """The (n, ...) host tensor of ``chunks``, (start, device chunk)
+        pairs in order. Chunk k's copy is enqueued on the side stream as
+        soon as chunk k is made, behind the work that made it, and waited
+        for only once chunk k + 1's work is enqueued: the device never waits
+        for the host, and the copy runs under the next chunk's work. The
+        result is memory of its own, which no later call touches."""
+        out = pending = None
+        for start, chunk in chunks:
+            if out is None:
+                out = torch.empty((n, *chunk.shape[1:]), dtype=chunk.dtype)
+            copied = start, chunk, *self._copy(chunk)  # the chunk held until it is drained
+            if pending is not None:  # before the copy after next refills its buffer
+                self._drain(out, pending)
+            pending = copied
+        self._drain(out, pending)
+        return out
+
+    def _copy(self, chunk: torch.Tensor):
+        if not self.buffers or self.buffers[0].shape[1:] != chunk.shape[1:] \
+                or len(self.buffers[0]) < len(chunk):
+            self.buffers = [torch.empty(chunk.shape, dtype=chunk.dtype, pin_memory=True)
+                            for _ in range(2)]
+        buf = self.buffers[self.copies % 2][: len(chunk)]
+        self.copies += 1
+        self.stream.wait_stream(torch.cuda.current_stream(chunk.device))
+        with torch.cuda.stream(self.stream):
+            with span("sync.images", stream=True):
+                count("readback_chunks")
+                buf.copy_(chunk, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+        return buf, done
+
+    @staticmethod
+    def _drain(out: torch.Tensor, pending) -> None:
+        start, _, buf, done = pending
+        done.synchronize()
+        out[start : start + len(buf)].copy_(buf)
 
 
 class Trainer:
@@ -176,6 +231,7 @@ class Trainer:
         self.fid_num_samples = int(fid_num_samples)
         self._fid_extractor = fid_extractor  # None: metrics.default_extractor
         self._fid_scorer = None
+        self._host_staging: Optional[HostStaging] = None  # evaluate's, on a CUDA device
         self.last_fid: Optional[float] = None
         self.fid_provenance: Optional[str] = None
 
@@ -404,7 +460,10 @@ class Trainer:
         """Sample with the EMA weights; returns (N, S, S, 3|4) in [0, 1]
         and, unless ``num`` is None, saves the grid as
         ``results/<name>/<num>-ema.jpg``. Without ``hist_batch`` the
-        target histograms are drawn from the data's histogram pool."""
+        target histograms are drawn from the data's histogram pool. On a
+        CUDA device each chunk of ``generate_truncated`` goes to the host
+        as soon as it is made, through the trainer's ``HostStaging``; on
+        the CPU the images are read back whole."""
         cfg = self.cfg
         if hist_batch is None:
             hist_batch = self._eval_hist_batch(4)
@@ -427,9 +486,17 @@ class Trainer:
         latents = torch.as_tensor(latents, dtype=torch.float32, device=dev)
         hist_batch = torch.as_tensor(hist_batch, dtype=torch.float32, device=dev)
 
-        images = readback("images", self.generate_truncated(
-            self._ema_params(), hist_batch, latents, n, trunc_psi=cfg.trunc_psi),
-            stream=True).numpy()
+        args = (self._ema_params(), hist_batch, latents, n, cfg.trunc_psi)
+        if dev.type == "cuda":  # each chunk's copy to the host under the next chunk's G
+            if self._host_staging is None:
+                self._host_staging = HostStaging(dev)
+            with span("sample.generate"):
+                count("syncs")  # one read of the samples
+                images = self._host_staging.gather(self._truncated_chunks(*args), len(n))
+            # NCHW memory, the NHWC view: as .cpu() of generate_truncated's images
+            images = images.permute(0, 2, 3, 1).numpy()
+        else:
+            images = readback("images", self.generate_truncated(*args), stream=True).numpy()
         if not parallel.is_main():  # every rank samples (the same draws); rank 0 writes
             return images
         if num is not None:
@@ -544,29 +611,36 @@ class Trainer:
         the call is span ``sample.generate``.
         """
         with span("sample.generate"):
-            cfg = self.cfg
-            if self.av is None:
-                self.av = self.compute_av(models["S"])
-            av = torch.as_tensor(self.av, dtype=torch.float32, device=self.device)
-            nl = cfg.num_layers
-            n = style.shape[0]
+            chunks = [c for _, c in self._truncated_chunks(models, hist_batch, style, noi,
+                                                           trunc_psi)]
+            return torch.cat(chunks, dim=0).permute(0, 2, 3, 1)
 
-            w = models["S"](style)
-            w = trunc_psi * (w - av) + av
-            w_styles = w[:, None, :].expand(n, nl - 2, w.shape[-1])
-            h_w = models["H"](hist_batch)
-            h_rows = torch.stack([h_w, h_w], dim=1)
-            # tile doubling to match the latent batch (histoGAN/histoGAN.py:1085-1086)
-            for _ in range(int(np.log2(np.sqrt(n)))):
-                h_rows = torch.cat([h_rows, h_rows], dim=0)
-            h_rows = h_rows[:n]
+    def _truncated_chunks(self, models, hist_batch: torch.Tensor, style: torch.Tensor,
+                          noi: torch.Tensor, trunc_psi: float):
+        """``generate_truncated``'s work as it is made: (start, NCHW images
+        clipped to [0, 1]) for each chunk of ``cfg.batch_size`` rows, the
+        last one ragged (evaluate_in_chunks, histoGAN/histoGAN.py:206-212)."""
+        cfg = self.cfg
+        if self.av is None:
+            self.av = self.compute_av(models["S"])
+        av = torch.as_tensor(self.av, dtype=torch.float32, device=self.device)
+        nl = cfg.num_layers
+        n = style.shape[0]
 
-            # chunked generation (evaluate_in_chunks, histoGAN/histoGAN.py:206-212)
-            bs = cfg.batch_size
-            outs = [models["G"](w_styles[s : s + bs], h_rows[s : s + bs], noi[s : s + bs])
-                    for s in range(0, n, bs)]
-            images = torch.cat(outs, dim=0).permute(0, 2, 3, 1)
-            return torch.clamp(images, 0.0, 1.0)
+        w = models["S"](style)
+        w = trunc_psi * (w - av) + av
+        w_styles = w[:, None, :].expand(n, nl - 2, w.shape[-1])
+        h_w = models["H"](hist_batch)
+        h_rows = torch.stack([h_w, h_w], dim=1)
+        # tile doubling to match the latent batch (histoGAN/histoGAN.py:1085-1086)
+        for _ in range(int(np.log2(np.sqrt(n)))):
+            h_rows = torch.cat([h_rows, h_rows], dim=0)
+        h_rows = h_rows[:n]
+
+        bs = cfg.batch_size
+        for s in range(0, n, bs):
+            out = models["G"](w_styles[s : s + bs], h_rows[s : s + bs], noi[s : s + bs])
+            yield s, torch.clamp(out, 0.0, 1.0)
 
     # ------------------------------------------------------ persistence
     def config(self) -> dict:

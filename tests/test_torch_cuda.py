@@ -1,7 +1,8 @@
 """The histogram kernels (K1 forward, K2 backward) and the 2x upsample
 kernels (U1 forward, U2 backward) on an NVIDIA GPU against their plain
-torch versions, U1 and U2 against aten's, and D's convolutions under the
-gradient penalty (``ops/conv2d.py``) against aten's double backward.
+torch versions, U1 and U2 against aten's, sampling's chunked copy to the
+host against the whole read, and D's convolutions under the gradient
+penalty (``ops/conv2d.py``) against aten's double backward.
 
 These tests need a CUDA card and nvcc; elsewhere they skip. They import
 no jax, so on a machine with a card and without jax they run without the
@@ -412,6 +413,56 @@ def test_two_gloo_ranks_on_one_card(dev, tmp_path):
                for k, w in one["metrics"][0].items())
     assert _rel(two[0]["state"], one["state"]) <= STEP_PARAM_REL
     assert two[0]["launches"] == {"histogram_fwd": 1, "histogram_bwd": 1}
+
+
+# ------------------------------------- sampling's copy to the host
+# (train/trainer.py::HostStaging: each chunk copied under the next chunk's G)
+def _sampling_draws(t, n, seed):
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    size, latent = t.cfg.image_size, t.cfg.latent_dim
+    hist = torch.rand((n, 3, 64, 64), generator=gen, device=t.device)
+    return (hist / hist.sum(dim=(1, 2, 3), keepdim=True),
+            torch.randn((n, latent), generator=gen, device=t.device),
+            torch.rand((n, size, size, 1), generator=gen, device=t.device))
+
+
+@pytest.mark.parametrize("n,bs", [(256, 16), (40, 16), (6, 16)])
+def test_evaluate_streams_the_images_bit_for_bit(dev, tmp_path, n, bs):
+    t = _trainer(tmp_path, batch_size=bs)
+    hist, z, noise = _sampling_draws(t, n, seed=n)
+    first = t.evaluate(None, hist_batch=hist, latents=z, n=noise)
+    want = t.generate_truncated(t._ema_params(), hist, z, noise,
+                                trunc_psi=t.cfg.trunc_psi).cpu().numpy()
+    assert first.shape == want.shape == (n, 32, 32, 3) and first.strides == want.strides
+    assert np.array_equal(first, want)
+    kept = first.copy()
+    hist, z, noise = _sampling_draws(t, n, seed=n + 1)
+    second = t.evaluate(None, hist_batch=hist, latents=z, n=noise)
+    assert not np.shares_memory(first, second) and not np.array_equal(first, second)
+    assert np.array_equal(first, kept)  # the second call left the first's array alone
+
+
+@pytest.mark.parametrize("n,bs", [(256, 16), (40, 16), (6, 16)])
+def test_evaluate_counts_its_chunks_and_one_sync(dev, tmp_path, n, bs):
+    from torch.profiler import ProfilerActivity, profile
+
+    from histogan_tpu_torch.utils import logging as telemetry
+
+    t = _trainer(tmp_path, batch_size=bs)
+    hist, z, noise = _sampling_draws(t, n, seed=n)
+    t.evaluate(None, hist_batch=hist, latents=z, n=noise)  # warm-up
+    telemetry.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        t.evaluate(None, hist_batch=hist, latents=z, n=noise)
+    chunks = -(-n // bs)
+    got = telemetry.counters()
+    assert (got["readback_chunks"], got["syncs"]) == (chunks, 1)
+    table = telemetry.span_table()
+    copies = [s for s in table if s.name == "sync.images"]
+    assert len(copies) == chunks
+    assert all(s.stream_ms is not None and 0 <= s.stream_ms < 1e3 for s in copies)
+    assert all(table[s.parent].name == "sample.generate" for s in copies)
+    telemetry.reset_spans()
 
 
 # ------------------------------------- D's convolutions under the gradient penalty

@@ -138,6 +138,67 @@ def test_tile_double_and_chunking(bundle, jax_trainer, tmp_path):
         cli.sample_target(port, None, num_image_tiles=2)
 
 
+# (n, batch): whole chunks, a ragged last chunk, fewer samples than a chunk
+CHUNKINGS = [(4, 2), (5, 2), (3, 4)]
+
+
+def _chunking_case(tmp_path, n, bs):
+    """A port Trainer at batch ``bs`` with a fixed truncation centre, and
+    the draws of ``n`` samples (one target histogram a row)."""
+    t = Trainer(name="c", results_dir=str(tmp_path / "r"), models_dir=str(tmp_path / "m"),
+                device="cpu", **dict(SMALL, batch_size=bs))
+    t.init_GAN()
+    rng = np.random.default_rng(10 * n + bs)
+    t.av = torch.from_numpy(0.1 * rng.standard_normal((1, SMALL["latent_dim"]),
+                                                      dtype=np.float32))
+    hist = torch.from_numpy(rng.random((n, 3, 64, 64), dtype=np.float32))
+    latents = torch.from_numpy(rng.standard_normal((n, SMALL["latent_dim"]), dtype=np.float32))
+    noise = torch.from_numpy(rng.random((n, 32, 32, 1), dtype=np.float32))
+    return t, hist, latents, noise
+
+
+def _unchunked_generate_truncated(t, models, hist_batch, style, noi, trunc_psi):
+    """generate_truncated as one loop over G's chunks, its images clamped
+    after the concatenation: the form the chunk iterator replaced."""
+    av, n = t.av, style.shape[0]
+    w = models["S"](style)
+    w = trunc_psi * (w - av) + av
+    w_styles = w[:, None, :].expand(n, t.cfg.num_layers - 2, w.shape[-1])
+    h_w = models["H"](hist_batch)
+    h_rows = torch.stack([h_w, h_w], dim=1)
+    for _ in range(int(np.log2(np.sqrt(n)))):
+        h_rows = torch.cat([h_rows, h_rows], dim=0)
+    h_rows = h_rows[:n]
+    bs = t.cfg.batch_size
+    outs = [models["G"](w_styles[s : s + bs], h_rows[s : s + bs], noi[s : s + bs])
+            for s in range(0, n, bs)]
+    return torch.clamp(torch.cat(outs, dim=0).permute(0, 2, 3, 1), 0.0, 1.0)
+
+
+@pytest.mark.parametrize("n,bs", CHUNKINGS)
+def test_generate_truncated_is_unchanged_by_its_chunk_iterator(tmp_path, n, bs):
+    t, hist, latents, noise = _chunking_case(tmp_path, n, bs)
+    models = t._ema_params()
+    with torch.inference_mode():
+        want = _unchunked_generate_truncated(t, models, hist, latents, noise, t.cfg.trunc_psi)
+    got = t.generate_truncated(models, hist, latents, noise, trunc_psi=t.cfg.trunc_psi)
+    assert got.shape == want.shape == (n, 32, 32, 3) and got.stride() == want.stride()
+    assert torch.equal(got, want)
+    starts = [s for s, _ in t._truncated_chunks(models, hist, latents, noise, 0.6)]
+    assert starts == list(range(0, n, bs))
+
+
+@pytest.mark.parametrize("n,bs", CHUNKINGS)
+def test_evaluate_on_the_cpu_returns_the_array_it_did(tmp_path, n, bs):
+    t, hist, latents, noise = _chunking_case(tmp_path, n, bs)
+    with torch.inference_mode():
+        want = _unchunked_generate_truncated(t, t._ema_params(), hist, latents, noise,
+                                             t.cfg.trunc_psi).cpu().numpy()
+    got = t.evaluate(None, hist_batch=hist, latents=latents, n=noise)
+    assert got.shape == want.shape and got.strides == want.strides
+    np.testing.assert_array_equal(got, want)
+
+
 def test_config_json_is_trusted(tmp_path):
     from histogan_tpu_torch.utils.config import HistoGANConfig
 
