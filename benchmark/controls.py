@@ -20,6 +20,7 @@ own runs never run this.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 import time
@@ -40,17 +41,19 @@ def main(argv=None) -> int:
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     mix = next(w["traffic"] for w in bench["workloads"] if w["name"] == args.workload)
-    training = json.loads((ROOT / "benchmark" / "traffic" / f"{mix}.json").read_text())[
-        "driver"] == "train"
+    driver = json.loads((ROOT / "benchmark" / "traffic" / f"{mix}.json").read_text())["driver"]
+    # a driver that plants faults (the training drivers) names them in FAULTS
+    faults = getattr(importlib.import_module(f"benchmark.drivers.{driver}"), "FAULTS", None)
     plan = [(int(s), ()) for s in args.seeds.split(",") if s]
-    plan += [(int(s), ("rerun", "tf32", "half_batch", "altered") if training else ("tf32",))
+    plan += [(int(s), ("rerun", "tf32", *faults) if faults else ("tf32",))
              for s in args.control_seeds.split(",") if s]
     rows = []
     for seed, controls in plan:
         res = run_cell(bench, args.workload, seed, args.seconds, False, t0=time.monotonic(),
                        controls=controls)
-        row = {"seed": seed, "correct": res["correct"],
-               "checks": {k: c["value"] for k, c in res["checks"].items()},
+        # a training driver also gives the numbers its limits do not name
+        numbers = res.get("readings", {k: c["value"] for k, c in res["checks"].items()})
+        row = {"seed": seed, "correct": res["correct"], "checks": numbers,
                "controls": res["controls"], "metrics": res["metrics"]}
         rows.append(row)
         with out.open("a") as f:
@@ -58,7 +61,7 @@ def main(argv=None) -> int:
         print(json.dumps(row), flush=True)
     names = sorted(rows[0]["checks"]) if rows else []
     for k in names:
-        lower = max(r["checks"][k] for r in rows)
+        lower = max(r["checks"].get(k, float("nan")) for r in rows)
         uppers = {c: min(r["controls"][c].get(k, float("nan"))
                          for r in rows if c in r["controls"])
                   for c in {c for r in rows for c in r["controls"]}}

@@ -3,28 +3,24 @@
 faults, on a trainer built with the options, weights that add the
 attention and the codebook, and the reference of ``reference/d_options.py``.
 
-Set-up is ``train.setup``'s, and besides it records, over the first
-steps, the program's nearest code of every row of every VQ call
-(``VectorQuantize.nearest``), the codebook each call of the first step
-finds, and D (its parameters and codebook) as the first G phase finds it.
-The reference follows the recorded steps, their augmentation draws
+Set-up is ``train.setup``'s (its Recorder keeps D, its parameters and
+codebook, as the first G phase finds it), and besides it records, over
+the first steps, the program's nearest code of every row of every VQ call
+(``VectorQuantize.nearest``) and the codebook each call of the first step
+finds. The reference follows the recorded steps, their augmentation draws
 included, from the same weights and codebook; where its nearest code for
 a row differs from the program's within the rounding of the distance
 (``d_options.pin_margin``) it takes the program's. Its first G phase runs
 against the program's D, loaded in place of its own after its D update
-(teacher forcing): DiffGrad's first update moves each weight by about a
-learning rate in the sign of its gradient, so a gradient near 0 that
-rounds to the other sign moves it the other way, and without the forcing
-D's output on G's images (``g_loss``) and G's gradients through it would
-differ by up to a few hundredths between two correct sides.
+(``train.forcing``): without the forcing D's output on G's images
+(``g_loss``) and G's gradients through it would differ by up to a few
+hundredths between two correct sides.
 
-The numbers are those of ``train.compare`` and, of the first step:
-``loss1_gap``, its losses, ``g_loss`` the forced G phase's; ``dgrad1_gap``
-and ``ggrad1_gap``, its ``grad1_gap`` over D's leaves and over those of
-S, H and G; ``change1_gap``, its ``change_gap`` of each leaf's change
-after the first step, D's by the reference's own update; ``code1_gap``
-(``code_gap``), the codebook as each VQ call of the first step found it,
-the G phase's call by the reference's own codebook. The later steps part
+The numbers are those of ``train.compare`` (``loss1_gap``, ``g_loss`` the
+forced G phase's; ``dgrad1_gap``; ``dchange1_gap``, D's first update
+against the reference's own) and ``code1_gap`` (``code_gap``), the codebook
+as each VQ call of the first step found it, the G phase's call by the
+reference's own codebook. The later steps part
 the two sides by more than rounding, the forced D's update included: the
 EMA codebook, whose used codes have become the means of the rows they
 took, leaves many rows near two codes, so that a tenth of the later
@@ -45,33 +41,10 @@ import numpy as np
 import torch
 
 from benchmark import harness
-from benchmark.drivers.train import (Recorder, _half_draws, changes, compare, first_gradients,
-                                     named_parameters, own_data, plant, reference_batch,
-                                     schedule, window)
+from benchmark.drivers.train import (FAULTS, _half_draws, changes, compare, forcing, own_data,
+                                     parameters_of, reference_batch, schedule, setup, window)
 from benchmark.reference import d_options
 from benchmark.reference import steps as ref_steps
-
-FAULTS = ("half_batch", "altered")  # planted in the reference put in the program's place
-OPTIONS = ("attn_layers", "fq_layers", "fq_dict_size", "aug_prob", "aug_types")
-
-
-def build_trainer(ctx):
-    from histogan_tpu_torch.train import trainer as module
-
-    cfg, tr = ctx.cfg, ctx.traffic
-    t = module.Trainer(
-        name="bench", results_dir=str(ctx.workdir / "results"),
-        models_dir=str(ctx.workdir / "models"), image_size=cfg["image_size"],
-        network_capacity=cfg["network_capacity"], batch_size=tr["batch_size"],
-        gradient_accumulate_every=tr["gradient_accumulate_every"], lr=cfg["learning_rate"],
-        save_every=tr["save_every"], hist_method=cfg["hist_method"],
-        hist_resizing=cfg["hist_resizing"], hist_sigma=cfg["hist_sigma"],
-        hist_bin=cfg["hist_bin"], hist_insz=cfg["hist_insz"], latent_dim=cfg["latent_dim"],
-        style_depth=cfg["style_depth"], seed=ctx.seed, precision=cfg["precision"],
-        sync_every=tr["sync_every"], device_dataset=tr["device_dataset"],
-        device=str(ctx.device), mixed_prob=cfg["mixed_prob"], trunc_psi=cfg["trunc_psi"],
-        **{k: cfg[k] for k in OPTIONS})
-    return t, module, {"alpha": cfg["alpha"]}
 
 
 def make_weights(cfg, seed: int, device):
@@ -115,18 +88,16 @@ def codebook_of(vq):
 
 class CodeRecorder:
     """Keeps, while open, the program's nearest codes of every VQ call
-    (``codes``), the codebook each call finds (``seen``) and D's state dict
-    as the first G phase finds it (``d_at_g``)."""
+    (``codes``) and the codebook each call finds (``seen``); ``first()``,
+    called after the first step, gives that step's codebooks (``seen1``)."""
 
     def __init__(self):
         from histogan_tpu_torch.models.vq import VectorQuantize
-        from histogan_tpu_torch.train import steps
 
         self.cls, self.saved = VectorQuantize, (VectorQuantize.__dict__["nearest"],
                                                 VectorQuantize.forward)
-        self.steps, self.g_phase = steps, steps.g_phase
-        self.codes, self.seen, self.d_at_g = [], [], None
-        nearest, forward, g_phase = self.saved[0].__func__, self.saved[1], self.g_phase
+        self.codes, self.seen = [], []
+        nearest, forward = self.saved[0].__func__, self.saved[1]
 
         def record_nearest(dist):
             idx = nearest(dist)
@@ -137,66 +108,21 @@ class CodeRecorder:
             self.seen.append(codebook_of(vq))
             return forward(vq, x, train_stats)
 
-        def record_g_phase(state, *args, **kwargs):
-            if self.d_at_g is None:
-                self.d_at_g = {k: v.detach().clone() for k, v in state.D.state_dict().items()}
-            return g_phase(state, *args, **kwargs)
-
         VectorQuantize.nearest = staticmethod(record_nearest)
         VectorQuantize.forward = record_forward
-        steps.g_phase = record_g_phase
+
+    def first(self) -> dict:
+        return {"seen1": list(self.seen)}
 
     def close(self):
         self.cls.nearest, self.cls.forward = self.saved
-        self.steps.g_phase = self.g_phase
-
-
-def setup(ctx):
-    """``train.setup`` with the options' weights, the codes, the codebook
-    and D at the first G phase. Returns (trainer, train kwargs, readings,
-    the Recorder of the first steps, the closed CodeRecorder, what takes a
-    planted fault out)."""
-    cfg, tr = ctx.cfg, ctx.traffic
-    photos = harness.make_photos(tr["dataset_images"], cfg["image_size"], ctx.seed, "photos",
-                                 ctx.device)
-    folder = ctx.workdir / "photos"
-    harness.write_jpegs(photos, folder)
-    flat = make_weights(cfg, ctx.seed, ctx.device)
-    trainer, module, kw = build_trainer(ctx)
-    trainer.init_GAN()
-    trainer.load_state_dict(flat)
-    trainer.set_data_src(str(folder))
-    trainer.steps = trainer.state.step = tr["start_step"]
-    unplant = plant(ctx, trainer, module)
-
-    start = {k: flat[k] for k in parameter_keys(cfg)}
-    rec, codes = Recorder(trainer, module), CodeRecorder()
-    losses = []
-    try:
-        for i in range(tr["checked_steps"]):
-            losses.append(trainer.train(**kw))
-            if i == 0:
-                grad1 = first_gradients(trainer)
-                change1 = changes(named_parameters(trainer), start)
-                seen1 = list(codes.seen)
-    finally:
-        rec.close()
-        codes.close()
-    change = changes(named_parameters(trainer), start)
-    del flat, start
-    readings = {"losses": losses, "grad1": grad1, "change": change, "change1": change1,
-                "seen1": seen1}
-    while trainer.steps % 4:  # warm-up to the next GP step: the window's start
-        trainer.train(**kw)
-    if ctx.device.type == "cuda":
-        torch.cuda.synchronize(ctx.device)
-    return trainer, kw, readings, rec, codes, unplant
 
 
 def reference_readings(ctx, rec, codes, tf32=False, fault=None):
     """``train.reference_readings`` on ``reference/d_options.py``, the
     program's codes (``codes``, the CodeRecorder) pinned within the margin
-    and its D at the first G phase taken in place of the reference's."""
+    and its D at the first G phase (``rec.d_at_g``) taken in place of the
+    reference's."""
     cfg, tr = ctx.cfg, ctx.traffic
     idx = np.concatenate([np.ravel(d[k]) for d in rec.data for k in d
                           if k.endswith(("idx", "pair"))])
@@ -222,12 +148,11 @@ def reference_readings(ctx, rec, codes, tf32=False, fault=None):
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     losses, feed_gap, grad1, flipped1, change1 = [], 0.0, {}, 0, {}
     own = {}
+    force_d = forcing(rec, start, own)
 
-    def force(m):  # the reference's own D noted, then the program's in its place
-        own["change"] = changes({f"D.{n}": p for n, p in m["D"].named_parameters()},
-                                {k: v for k, v in start.items() if k.startswith("D.")})
+    def force(m):  # the reference's own codebooks noted too
         own["seen"] = [(len(seen) + j, codebook_of(q)) for j, q in enumerate(quantizers)]
-        m["D"].load_state_dict(codes.d_at_g)
+        force_d(m)
     try:
         for i, (step, data) in enumerate(zip(rec.steps, rec.data)):
             batch = reference_batch(ctx, data, images, pool)
@@ -259,13 +184,10 @@ def reference_readings(ctx, rec, codes, tf32=False, fault=None):
                     q.seen = None
                 for j, book in own["seen"]:
                     seen[j] = book
-                change1 = dict(changes({f"{k}.{n}": p for k, mod in m.items()
-                                        for n, p in mod.named_parameters()}, start),
-                               **own["change"])
+                change1 = dict(changes(parameters_of(m), start), **own["change"])
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = was
-    params = {f"{k}.{n}": p for k, mod in m.items() for n, p in mod.named_parameters()}
-    return {"losses": losses, "grad1": grad1, "change": changes(params, start),
+    return {"losses": losses, "grad1": grad1, "change": changes(parameters_of(m), start),
             "change1": change1, "feed_gap": feed_gap, "seen1": seen,
             "vq_pinned": sum(q.pinned for q in quantizers), "vq_flipped1": flipped1,
             "vq_flipped": sum(q.flipped for q in quantizers)}
@@ -288,20 +210,10 @@ def code_gap(prog_seen, ref_seen) -> float:
 
 
 def compare_dopts(prog, ref, vq) -> dict:
-    """``train.compare``'s numbers; ``dgrad1_gap`` and ``ggrad1_gap``, its
-    ``grad1_gap`` over D's leaves and over the rest; ``change1_gap``, its
-    ``change_gap`` after the first step; ``code1_gap``; and the VQ readings
-    of ``vq`` (the reference run pinned to the program's codes: ``ref``, or
-    a control in the program's place)."""
+    """``train.compare``'s numbers, ``code1_gap``, and the VQ readings of
+    ``vq`` (the reference run pinned to the program's codes: ``ref``, or a
+    control in the program's place)."""
     out = compare(prog, ref)
-
-    def leaves(r, d):
-        return dict(r, grad1={k: v for k, v in r["grad1"].items() if k.startswith("D.") == d})
-
-    out["dgrad1_gap"] = compare(leaves(prog, True), leaves(ref, True))["grad1_gap"]
-    out["ggrad1_gap"] = compare(leaves(prog, False), leaves(ref, False))["grad1_gap"]
-    out["change1_gap"] = compare(dict(prog, change=prog["change1"]),
-                                 dict(ref, change=ref["change1"]))["change_gap"]
     out["code1_gap"] = code_gap(prog["seen1"], ref["seen1"])
     for k in ("vq_pinned", "vq_flipped1", "vq_flipped"):
         out[k] = vq[k]
@@ -310,7 +222,7 @@ def compare_dopts(prog, ref, vq) -> dict:
 
 def run(ctx) -> dict:
     tr = ctx.traffic
-    trainer, kw, readings, rec, codes, unplant = setup(ctx)
+    trainer, kw, readings, rec, codes, unplant = setup(ctx, make_weights, CodeRecorder)
     setup_s = time.monotonic() - ctx.t0
     n, elapsed, view = window(ctx, trainer, kw)
     device = harness.device_info(ctx.device)
@@ -319,7 +231,8 @@ def run(ctx) -> dict:
     del trainer
     harness.free_device_memory()
     ref = reference_readings(ctx, rec, codes)
-    checks = harness.judge(compare_dopts(readings, ref, ref), ctx.limits)
+    values = compare_dopts(readings, ref, ref)
+    checks = harness.judge(values, ctx.limits)
     # the control, the faults, and the reference run again, each in the
     # program's place
     controls = {}
@@ -333,7 +246,7 @@ def run(ctx) -> dict:
     harness.say(f"window: {n} steps, {imgs} images in {elapsed:.3f} s; setup {setup_s:.3f} s")
     out = {"correct": harness.passed(checks), "attempted": n, "failed": 0,
            "metrics": {"setup_s": setup_s, tr["metric"]: imgs / elapsed},
-           "device": device, "checks": checks, "controls": controls}
+           "device": device, "checks": checks, "readings": values, "controls": controls}
     if view is not None:
         out["view"] = view
     return out

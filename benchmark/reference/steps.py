@@ -104,11 +104,13 @@ def generate(m, hist, d, num_layers):
 
 
 def histogan_step(m, opt_d, opt_g, batch, draws, cfg, apply_gp, apply_pl, apply_ema,
-                  pl_mean, grads_out=None):
+                  pl_mean, grads_out=None, between=None):
     """One step on the modules ``m`` (S, H, G, D, SE, HE, GE), in place.
     ``batch``: {'d_images' (A, B, S, S, 3) uint8, 'd_hists', 'g_hists'
     (A, B, 3, h, h)}; ``draws``: {'d', 'g': [draws per micro-batch], 'pl':
-    [noise per micro-batch] or None}. Returns (metrics, new pl_mean)."""
+    [noise per micro-batch] or None}. ``between``, where given, is called
+    with ``m`` after D's update and before the G phase. Returns (metrics,
+    new pl_mean)."""
     nl = m["G"].num_layers
     accum = len(draws["d"])
     d_params = list(m["D"].parameters())
@@ -125,6 +127,8 @@ def histogan_step(m, opt_d, opt_g, batch, draws, cfg, apply_gp, apply_pl, apply_
     if grads_out is not None:
         grads_out["D"] = grads
     opt_d.step(grads)
+    if between is not None:
+        between(m)
 
     grads, advs, hists, avg_pl = None, [], [], None
     for a in range(accum):

@@ -1,23 +1,17 @@
 """CPU tests of the cell with D's options (``histogan-256-c16-dopts.train-b16``,
 ``drivers/train_dopts.py``, ``reference/d_options.py``,
 ``work/flops_dopts.py``) at the tiny size: the traced cell reads
-``correct`` and its exact attention count; the faults planted in the
-reference put in the program's place fail the check and the reference
-run again passes it; the reference takes the program's code for a row
+``correct`` and its exact attention count; the reference takes the program's code for a row
 only within the distance's rounding; its G phase runs against the D put
 in place between the phases; the FLOP count equals a hand count
 of the attention and the port's own dispatch-mode count. The program's
-faults (``frozen``, ``half_batch``, ``altered``) are
-``test_bench_harness.py``'s cases for every training cell, this one
-included."""
+faults (``frozen``, ``half_batch``, ``altered``) and those planted in the
+reference put in the program's place are ``test_bench_harness.py``'s
+cases for every training cell, this one included."""
 
 from __future__ import annotations
 
 import json
-import math
-import os
-import subprocess
-import sys
 
 import pytest
 import torch
@@ -31,39 +25,14 @@ from benchmark.work.flops import _Count
 CELL = "histogan-256-c16-dopts.train-b16"
 CONFIG = json.loads((ROOT / "benchmark" / "configs" / "histogan-256-c16-dopts.json").read_text())
 
-RUNNER = """
-import json, sys, time
-from benchmark.run import run_cell
-bench = json.load(open("BENCHMARK.json"))
-out = run_cell(bench, sys.argv[1], int(sys.argv[2]), 0.5, False, device="cpu", t0=time.monotonic(),
-               controls=tuple(sys.argv[3].split(",")))
-print(json.dumps({k: out[k] for k in ("correct", "checks", "controls")}))
-"""
-
-
 def test_tiny_cell_reads_correct_and_counts_attention(run_tiny):
     out = run_tiny(tiny_name(CELL), trace=True)
     assert out["correct"], out["checks"]
-    assert set(out["checks"]) == {"loss1_gap", "dgrad1_gap", "ggrad1_gap", "change1_gap",
-                                  "code1_gap", "feed_gap"}
+    assert set(out["checks"]) == {"loss1_gap", "dgrad1_gap", "dchange1_gap", "code1_gap",
+                                  "feed_gap"}
     # 3 D calls a step (fakes, reals, G's fakes) x 2 layers x 2 blocks, over 16 images
     assert out["metrics"]["attn_per_img.dopts"]["value"] == 0.75
     assert out["metrics"]["mfu.dopts"]["value"] > 0
-
-
-def test_reference_faults_fail_the_check(tiny_tree):
-    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
-    proc = subprocess.run([sys.executable, "-c", RUNNER, tiny_name(CELL), str(2 ** 31 + 5),
-                           "rerun,half_batch,altered"], cwd=tiny_tree, env=env,
-                          capture_output=True, text=True, timeout=600)
-    assert proc.returncode == 0, proc.stderr[-3000:]
-    out = json.loads(proc.stdout.strip().splitlines()[-1])
-    assert out["correct"], out["checks"]
-    limits = {k: c["limit"] for k, c in out["checks"].items()}
-    for name, numbers in out["controls"].items():
-        failed = [k for k, lim in limits.items()
-                  if not (math.isfinite(numbers[k]) and numbers[k] <= lim)]
-        assert bool(failed) == (name != "rerun"), (name, numbers)
 
 
 def test_reference_takes_the_programs_code_only_within_the_rounding():

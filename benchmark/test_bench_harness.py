@@ -7,6 +7,7 @@ refusals. The control on the card is ``test_bench_card.py``."""
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -51,6 +52,35 @@ FAULTS += [(c, "half_batch") for c in SERVING if c.endswith(".sample")]
 def test_check_fails_under_fault(run_tiny, cell, fault):
     out = run_tiny(tiny_name(cell), fault=fault)
     assert not out["correct"], out["checks"]
+
+
+RUNNER = """
+import json, sys, time
+from benchmark.run import run_cell
+bench = json.load(open("BENCHMARK.json"))
+out = run_cell(bench, sys.argv[1], int(sys.argv[2]), 0.5, False, device="cpu", t0=time.monotonic(),
+               controls=tuple(sys.argv[3].split(",")))
+print(json.dumps({k: out[k] for k in ("correct", "checks", "controls")}))
+"""
+
+
+@pytest.mark.parametrize("cell", TRAINING)
+def test_reference_faults_fail_the_check(tiny_tree, cell):
+    # the faults planted in the reference put in the program's place (as
+    # controls.py reads them on the card) fail the check; the reference
+    # run again passes it
+    env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2")
+    proc = subprocess.run([sys.executable, "-c", RUNNER, tiny_name(cell), str(2 ** 31 + 5),
+                           "rerun,half_batch,altered"], cwd=tiny_tree, env=env,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["correct"], out["checks"]
+    limits = {k: c["limit"] for k, c in out["checks"].items()}
+    for name, numbers in out["controls"].items():
+        failed = [k for k, lim in limits.items()
+                  if not (math.isfinite(numbers[k]) and numbers[k] <= lim)]
+        assert bool(failed) == (name != "rerun"), (name, numbers)
 
 
 @pytest.mark.parametrize("cell,fault", [(c, f) for c in KEPT

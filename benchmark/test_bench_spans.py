@@ -28,7 +28,8 @@ CELLS = [w["name"] for w in BENCH["workloads"]]
 HOST = ("data_ms.train", "enqueue_ms.recolor", "sync_ms.recolor", "syncs_per_photo.recolor")
 STREAM = ("d_phase_ms.train", "gp_ms.train", "g_phase_ms.train", "update_ms.train",
           "readback_ms.sample")
-STREAMED = {"step.d_phase", "step.g_phase", "step.update", "step.ema", "sync.images"}
+STREAMED = {"step.d_phase", "step.g_phase", "step.update", "step.ema", "sync.images", "d.attn",
+            "d.vq"}
 
 
 def span_metrics(cell: str) -> set:
